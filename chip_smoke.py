@@ -1,0 +1,471 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``coltt_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # from the root of a checkout
+
+Builds the port's CUDA kernels from ``coltt_tpu_torch/csrc``, checks each
+against its plain PyTorch version on the card, then drives the edge
+server's main path over gRPC: a 1M x 768d int8 cosine collection (the
+configuration of ``bench.py``), ingested through BulkIndex and searched
+through SearchBatch / Search, flushed, released and loaded again.
+
+Phases (each exits non-zero on failure):
+
+0. card line (``nvidia-smi`` name and power limit) and versions;
+1. kernel build, with its time;
+2. K1 against its plain version: small shapes (planted rows, tombstones,
+   zero-dot winners, all-invalid, Q=520) and the serving shape (Q in
+   {8, 2048}, N=1,048,576, D=768) for int8, f8, bf16 and f32 codes.
+   int8 keys must be bit-identical; float keys within 1e-4 of the bias
+   (the f32 sum over D runs in another order), and the top-40 ids
+   selected from them must overlap >= 39/40 per query. Median times of
+   kernel and plain version by CUDA events, after a warm-up;
+3. the edge server end to end: recall@10 of the high_resource (K1) and
+   the plain exact SearchBatch against f32 ground truth computed on the
+   card with TF32 off; K1's must be no more than 0.01 below the plain
+   path's. K1's launch count must rise during the high_resource search.
+
+Every number printed is this run's, on the card named in phase 0. The
+second-to-last line is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+import numpy as np
+
+SEED = 0
+N_ROWS = 1_000_000
+DIM = 768
+K = 10
+BULK_ROWS = 20_000
+QUERIES = 2048
+TAGS = 8
+REPS = 5
+SERVING_N = 1 << 20  # the store's capacity at 1M rows
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn):
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
+
+
+def timed_pair(plain, kernel, reps=REPS):
+    """Median ms of both, warmed up, measured in turns on one card."""
+    plain(), kernel()
+    tp, tk = [], []
+    for _ in range(reps):
+        tp.append(cuda_ms(plain))
+        tk.append(cuda_ms(kernel))
+    return statistics.median(tk), statistics.median(tp)
+
+
+# -- phase 0 / 1 ---------------------------------------------------------------
+
+def phase_card():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip())
+    from coltt_tpu_torch.ops.native import nvcc_path
+
+    nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[-1]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} nvcc: {nvcc} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+
+def phase_build():
+    from coltt_tpu_torch.ops import fused_scan as fs
+
+    t0 = time.perf_counter()
+    lib = fs.load_kernels()
+    log(f"[build] binmax_scan: nvcc {lib.build_seconds:.2f} s, load "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in lib.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[build]   {line.strip()}")
+
+
+# -- phase 2 -------------------------------------------------------------------
+
+def _select(keys, chunk, k):
+    """Top-k bin survivors -> (masked values f32, row ids), as the wrapper."""
+    import torch
+
+    nsl = chunk // 128
+    fsel, pos = torch.topk(keys.view(torch.float32), k, dim=1)
+    sel = fsel.view(torch.int32)
+    ids = (pos // 128) * chunk + (sel & (nsl - 1)).long() * 128 + pos % 128
+    return (sel & -nsl).view(torch.float32), ids
+
+
+def _compare_keys(got, want, bias, chunk, exact, what):
+    """Kernel vs plain keys; returns max |difference| of the key values."""
+    import torch
+
+    nsl = chunk // 128
+    gv = (got & -nsl).view(torch.float32)
+    wv = (want & -nsl).view(torch.float32)
+    live = want > 0
+    check(torch.equal(got > 0, live), f"{what}: valid/tombstone keys differ")
+    err = (gv - wv)[live].abs().max().item() if live.any() else 0.0
+    if exact:
+        check(torch.equal(got, want), f"{what}: int8 keys not bit-identical "
+              f"(max value diff {err})")
+        return err
+    tol = 1e-4 * bias
+    check(err <= tol, f"{what}: key values differ by {err} > {tol}")
+    kk = min(40, got.shape[1])
+    gsv, gid = _select(got, chunk, kk)
+    wsv, wid = _select(want, chunk, kk)
+    for r in range(got.shape[0]):
+        common = len(set(gid[r].tolist()) & set(wid[r].tolist()))
+        check(common >= kk - 1, f"{what}: query {r} top-{kk} overlap {common}")
+    sdiff = (gsv - wsv).abs().max().item()
+    check(sdiff <= tol, f"{what}: top-{kk} values differ by {sdiff} > {tol}")
+    return err
+
+
+def _store_tensors(x, dtype):
+    """A dense store's state from f32 rows: (codes, scale, sqnorm)."""
+    import torch
+    from coltt_tpu_torch.ops.quant import Quantization, dequantize, quantize
+
+    quant = {torch.int8: Quantization.I8, torch.float8_e4m3fn: Quantization.F8,
+             torch.bfloat16: Quantization.BF16,
+             torch.float32: Quantization.NONE}[dtype]
+    codes, scale = quantize(x, quant)
+    deq = dequantize(codes, scale)
+    return codes, scale, (deq * deq).sum(dim=1)
+
+
+def phase_kernels():
+    """K1 vs its plain version; returns the int8 serving-shape record."""
+    import torch
+    from coltt_tpu_torch.ops import fused_scan as fs
+    from coltt_tpu_torch.ops.distance import Metric
+    from coltt_tpu_torch.ops.topk import scan_topk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    dtypes = [torch.int8, torch.float8_e4m3fn, torch.bfloat16, torch.float32]
+
+    def k1_pair(q, codes, scale, sqnorm, valid, what):
+        inp = fs.scan_inputs(q, codes, scale, sqnorm, valid, metric=Metric.COSINE)
+        chunk = fs.chunk_for(codes.shape[0])
+        args = (inp["queries"], codes, inp["rowmul"], inp["rowadd"])
+        kw = dict(chunk=chunk, round_bf16=codes.dtype != torch.float32)
+        got = fs.binmax_scan(*args, **kw)
+        torch.cuda.synchronize()
+        want = fs.binmax_scan_ref(*args, **kw)
+        err = _compare_keys(got, want, float(inp["bias"]), chunk,
+                            codes.dtype == torch.int8, what)
+        return args, kw, err
+
+    # small shapes: the cases of the reference's kernel tests
+    n, d = 8192, 256
+    x = torch.randn(n, d, device=dev, generator=gen)
+    q = torch.randn(520, d, device=dev, generator=gen)
+    planted = [17, 32 * 5 + 3, 32 * 20, 32 * 40 + 99, 32 * 60 + 1]
+    xp = x.clone()
+    for j, slot in enumerate(planted):
+        xp[slot] = q[0] * (1.0 + 0.01 * j)
+    for dt in dtypes:
+        codes, scale, sqnorm = _store_tensors(xp, dt)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+        valid[::7] = False
+        valid[planted] = True
+        k1_pair(q, codes, scale, sqnorm, valid, f"small {dt} Q=520")
+        _, ids = fs.fused_scan_neg_topk(q[:3], codes, scale, sqnorm, valid, k=5)
+        check(set(ids[0].tolist()) == set(planted), f"planted rows lost ({dt})")
+        # tombstone the self-match of a stored row
+        tv = torch.ones(n, dtype=torch.bool, device=dev)
+        tv[7] = False
+        _, ids = fs.fused_scan_neg_topk(xp[7:8], codes, scale, sqnorm, tv, k=3)
+        check(7 not in ids[0].tolist(), f"tombstoned row returned ({dt})")
+        negd, _ = fs.fused_scan_neg_topk(
+            xp[:2], codes, scale, sqnorm,
+            torch.zeros(n, dtype=torch.bool, device=dev), k=3)
+        check(bool(torch.isneginf(negd).all()), f"all-invalid store scored ({dt})")
+        # Q=520: top-1 of K1 vs the plain exact scan
+        _, i_fused = fs.fused_scan_neg_topk(q, codes, scale, sqnorm, valid, k=1)
+        _, i_exact = scan_topk(q, codes, scale, sqnorm, valid, k=1)
+        match = (i_fused[:, 0] == i_exact[:, 0]).float().mean().item()
+        check(match > 0.95, f"Q=520 top-1 agreement {match} ({dt})")
+    # zero-dot winners: every winner scores exactly 0, the rest negative
+    zq = torch.zeros(1, 128, device=dev)
+    zq[0, 0] = 1.0
+    zx = torch.zeros(2048, 128, device=dev)
+    zx[:, 0] = -0.5
+    zx[:, 1] = 1.0
+    zplant = [3, 32 + 7, 5 * 32 + 11, 900, 2047]
+    zx[zplant, 0] = 0.0
+    k1_pair(zq, zx, None, (zx * zx).sum(1), None, "zero-dot")
+    scores, ids = fs.fused_scan_topk(zq, zx, None, (zx * zx).sum(1), None,
+                                     k=len(zplant), compute_dtype=torch.float32)
+    check(set(ids[0].tolist()) == set(zplant), "zero-dot winners lost their ids")
+    check(bool(((scores - 50.0).abs() < 1e-3).all()), "zero-dot scores != 50")
+    log("[kernels] small shapes: planted, tombstones, zero-dot, all-invalid, "
+        "Q=520 ok for int8 / f8 / bf16 / f32 codes")
+
+    # serving shape
+    n, d = SERVING_N, DIM
+    x = torch.randn(n, d, device=dev, generator=gen)
+    valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    valid[:N_ROWS] = True  # the padding past the data is tombstoned
+    record = None
+    for dt in dtypes:
+        codes, scale, sqnorm = _store_tensors(x, dt)
+        for nq in (8, QUERIES):
+            q = torch.randn(nq, d, device=dev, generator=gen)
+            what = f"serving {dt} Q={nq}"
+            args, kw, err = k1_pair(q, codes, scale, sqnorm, valid, what)
+            ms, plain_ms = timed_pair(lambda: fs.binmax_scan_ref(*args, **kw),
+                                      lambda: fs.binmax_scan(*args, **kw))
+            log(f"[kernels] {what}: K1 {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"max key err {err}")
+            if dt == torch.int8 and nq == QUERIES:
+                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del codes, scale, sqnorm
+    torch.cuda.empty_cache()
+    return record
+
+
+# -- phase 3 -------------------------------------------------------------------
+
+def _ground_truth(x_host, q_host, dev):
+    """Exact cosine top-k on the card in f32 (TF32 off), row-blocked."""
+    import torch
+
+    qn = torch.nn.functional.normalize(torch.from_numpy(q_host).to(dev), dim=1)
+    best_v, best_i = None, None
+    block = 131072
+    for lo in range(0, x_host.shape[0], block):
+        xb = torch.from_numpy(x_host[lo:lo + block]).to(dev)
+        s = qn @ torch.nn.functional.normalize(xb, dim=1).t()
+        v, i = torch.topk(s, K, dim=1)
+        i = i + lo
+        if best_v is None:
+            best_v, best_i = v, i
+        else:
+            v, sel = torch.topk(torch.cat([best_v, v], 1), K, dim=1)
+            best_i = torch.gather(torch.cat([best_i, i], 1), 1, sel)
+            best_v = v
+    return best_i.cpu().numpy()
+
+
+def _recall(ids_flat, counts, truth):
+    from coltt_tpu_torch.ops.topk import compute_recall
+
+    check(counts == [K] * len(counts), f"SearchBatch counts {set(counts)} != {K}")
+    got = np.array([int(p) for p in ids_flat]).reshape(len(counts), K)
+    return compute_recall(got, truth)
+
+
+def phase_server(tmp, device="cuda"):
+    import grpc
+    import torch
+    from coltt_tpu_torch.api.client import EdgeClient
+    from coltt_tpu_torch.api.server import build_servicer, create_server
+    from coltt_tpu_torch.index.filter import Filter, Op
+    from coltt_tpu_torch.index.schema import CollectionSchema, FieldSchema, FieldType
+    from coltt_tpu_torch.ops import fused_scan as fs
+    from coltt_tpu_torch.ops.quant import Quantization
+    from coltt_tpu_torch.utils.config import Config
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    x = rng.standard_normal((N_ROWS, DIM), dtype=np.float32)
+    queries = rng.standard_normal((QUERIES, DIM), dtype=np.float32)
+    log(f"[server] data {N_ROWS} x {DIM} f32 from seed {SEED}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    truth = _ground_truth(x, queries, torch.device(device))
+
+    cfg = Config()
+    cfg.root_layer.bind_address = "127.0.0.1:0"
+    cfg.root_layer.prof_address = "127.0.0.1:0"
+    # a 20k-row f32 BulkIndex is 61 MB, above the 10 MB default
+    cfg.root_layer.max_recv_msg_size = 256 << 20
+    cfg.root_layer.max_send_msg_size = 256 << 20
+    cfg.storage.data_dir = os.path.join(tmp, "data")
+    cfg.storage.object_store_root = os.path.join(tmp, "objects")
+    cfg.serving.device = device
+
+    fs.binmax_scan.launches = 0  # the main path's count starts here
+    server = create_server(build_servicer("edge", cfg), cfg)
+    server.start()
+    channel = grpc.insecure_channel(
+        f"127.0.0.1:{server.bound_port}",
+        options=[("grpc.max_send_message_length", 256 << 20),
+                 ("grpc.max_receive_message_length", 256 << 20)])
+    try:
+        c = EdgeClient(channel)
+        name = "flagship"
+        c.create_collection(CollectionSchema(
+            name=name, dim=DIM, quantization=Quantization.I8,
+            fields=[FieldSchema("pk", FieldType.STRING, primary_key=True),
+                    FieldSchema("tag", FieldType.STRING)]))
+        t0 = time.perf_counter()
+        for lo in range(0, N_ROWS, BULK_ROWS):
+            hi = min(N_ROWS, lo + BULK_ROWS)
+            c.bulk_index(name, [str(i) for i in range(lo, hi)], x[lo:hi],
+                         [{"tag": f"t{i % TAGS}"} for i in range(lo, hi)])
+        ingest_s = time.perf_counter() - t0
+        check(c.get_collection(name).collection_size == N_ROWS, "size after ingest")
+        log(f"[server] BulkIndex {N_ROWS} rows in {N_ROWS // BULK_ROWS} RPCs: "
+            f"{ingest_s:.2f} s = {N_ROWS / ingest_s:.0f} rows/s (host staging; "
+            f"rows are quantized on the card at the next search)")
+
+        def search_batch(hr):
+            return c.search_batch(name, queries, limit=K, high_resource=hr)
+
+        t0 = time.perf_counter()
+        before = fs.binmax_scan.launches
+        counts, scores, ids_k1, _ = search_batch(True)
+        first_s = time.perf_counter() - t0
+        check(fs.binmax_scan.launches > before,
+              "high_resource SearchBatch did not launch K1")
+        check(all(np.isfinite(scores)), "non-finite scores")
+        log(f"[server] first SearchBatch (incl. quantizing {N_ROWS} staged rows on "
+            f"the card): {first_s:.2f} s")
+        recall_k1 = _recall(ids_k1, counts, truth)
+        before = fs.binmax_scan.launches
+        counts, scores, ids_plain, _ = search_batch(False)
+        check(fs.binmax_scan.launches == before, "plain SearchBatch launched K1")
+        check(all(np.isfinite(scores)), "non-finite scores")
+        recall_plain = _recall(ids_plain, counts, truth)
+        log(f"[server] recall@{K} vs f32 ground truth: high_resource (K1) "
+            f"{recall_k1:.4f}, plain exact {recall_plain:.4f}")
+        check(recall_k1 >= recall_plain - 0.01,
+              f"K1 recall {recall_k1} more than 0.01 below plain {recall_plain}")
+        check(recall_plain > 0.5, f"plain recall {recall_plain} implausibly low")
+
+        p50 = {}
+        for hr in (True, False):
+            ts = []
+            for _ in range(REPS):
+                t0 = time.perf_counter()
+                search_batch(hr)
+                ts.append((time.perf_counter() - t0) * 1e3)
+            p50[hr] = statistics.median(ts)
+        log(f"[server] SearchBatch Q={QUERIES} k={K} p50 over {REPS}: "
+            f"high_resource (K1) {p50[True]:.1f} ms, plain exact "
+            f"{p50[False]:.1f} ms")
+
+        for r in range(3):
+            for hr in (True, False):
+                # one query alone: the same hits as its SearchBatch row, up
+                # to a near-tie reordered by a reduction over another shape
+                hits = [h["id"] for h in
+                        c.search(name, queries[r], limit=K, high_resource=hr)]
+                want = (ids_k1 if hr else ids_plain)[r * K:(r + 1) * K]
+                check(hits[0] == want[0] and len(set(hits) & set(want)) >= K - 1,
+                      f"Search {r} (high_resource={hr}) != its SearchBatch row")
+        hits = c.search(name, queries[0], limit=K,
+                        filter_expression=Filter("tag", Op.EQ, "t3"))
+        check(len(hits) == K and all(h["metadata"]["tag"] == "t3" for h in hits),
+              "filtered Search returned rows outside the tag")
+        check(all(int(h["id"]) % TAGS == 3 for h in hits), "filtered pk/tag mismatch")
+        log(f"[server] Search x6 and filtered Search on tag ok "
+            f"(top score {hits[0]['score']:.3f})")
+
+        t0 = time.perf_counter()
+        c.flush(name)
+        c.release_collection(name)
+        check(not c.get_collection(name).load, "collection still loaded")
+        c.load_collection(name)
+        log(f"[server] Flush + Release + Load: {time.perf_counter() - t0:.1f} s")
+        counts, _, ids_again, _ = search_batch(True)
+        check(ids_again == ids_k1, "SearchBatch after reload returned other ids")
+        launches = fs.binmax_scan.launches
+        log(f"[server] K1 launches during the server run: {launches}")
+        return {"launches": launches, "recall_k1": recall_k1,
+                "recall_plain": recall_plain}
+    finally:
+        channel.close()
+        server.stop(None)
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 1
+    try:
+        import coltt_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: run from the root of a checkout (coltt_tpu_torch "
+              "not found)", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    tmp = tempfile.mkdtemp(prefix="coltt-smoke-")
+    try:
+        phase_card()
+        phase_build()
+        record = phase_kernels()
+        run = phase_server(tmp)
+    except Exception:  # noqa: BLE001 — any failure fails the smoke
+        traceback.print_exc()
+        return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    kernels = [{
+        "name": "K1 binmax_scan",
+        "route": "cuda",
+        "source": "coltt_tpu_torch/csrc/binmax_scan.cu",
+        "replaces": "coltt_tpu/ops/scan_pallas.py:126",
+        "launches": run["launches"],
+        **record,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""gRPC client for the edge service (port of ``coltt_tpu/api/client.py``,
+``EdgeClient``). Typed calls over the wire surface with Pythonic helpers;
+channel callables are hand-written over the generated message classes.
+The core and experimental clients are not ported yet."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import grpc
+import numpy as np
+from google.protobuf import empty_pb2
+
+import coltt_tpu_torch.api  # noqa: F401  (gen/ on sys.path)
+import edge_pb2
+
+from coltt_tpu_torch.api.marshal import (
+    dict_to_struct,
+    filter_to_proto,
+    schema_to_collection_msg,
+    struct_to_dict,
+)
+from coltt_tpu_torch.api.server import EDGE_RPCS
+from coltt_tpu_torch.index.filter import FilterExpression
+from coltt_tpu_torch.index.schema import CollectionSchema
+
+
+class _StubBase:
+    SERVICE: str
+    RPCS: Dict[str, Tuple[type, type]]
+
+    def __init__(self, channel: grpc.Channel):
+        self._channel = channel
+        self._calls = {}
+        for name, (req_cls, resp_cls) in self.RPCS.items():
+            self._calls[name] = channel.unary_unary(
+                f"/{self.SERVICE}/{name}",
+                request_serializer=req_cls.SerializeToString,
+                response_deserializer=resp_cls.FromString,
+            )
+
+    def call(self, name: str, request):
+        return self._calls[name](request)
+
+    def ping(self) -> bool:
+        self.call("Ping", empty_pb2.Empty())
+        return True
+
+
+def _raise_on_error(resp):
+    if hasattr(resp, "status") and not resp.status:
+        msg = "rpc failed"
+        if hasattr(resp, "error") and resp.error.error_message:
+            msg = resp.error.error_message
+        raise RuntimeError(msg)
+    return resp
+
+
+class EdgeClient(_StubBase):
+    RPCS = EDGE_RPCS
+    SERVICE = "colttpu.edge.v1.EdgeService"
+
+    def create_collection(self, schema: CollectionSchema):
+        msg = schema_to_collection_msg(schema, edge_pb2.Collection, edge_pb2.IndexField)
+        return _raise_on_error(self.call("CreateCollection", msg))
+
+    def delete_collection(self, name: str):
+        return _raise_on_error(
+            self.call("DeleteCollection", edge_pb2.CollectionName(collection_name=name))
+        )
+
+    def get_collection(self, name: str):
+        return _raise_on_error(
+            self.call("GetCollection", edge_pb2.CollectionName(collection_name=name))
+        )
+
+    def load_collection(self, name: str):
+        return _raise_on_error(
+            self.call("LoadCollection", edge_pb2.CollectionName(collection_name=name))
+        )
+
+    def release_collection(self, name: str):
+        return _raise_on_error(
+            self.call("ReleaseCollection", edge_pb2.CollectionName(collection_name=name))
+        )
+
+    def flush(self, name: str):
+        return _raise_on_error(
+            self.call("Flush", edge_pb2.CollectionName(collection_name=name))
+        )
+
+    def index(
+        self, name: str, primary_key: str, vector=None,
+        metadata: Optional[Dict[str, Any]] = None, *, delete: bool = False,
+    ):
+        req = edge_pb2.IndexChange(
+            collection_name=name,
+            primary_key=primary_key,
+            metadata=dict_to_struct(metadata or {}),
+            vectors=list(map(float, vector)) if vector is not None else [],
+            changed=edge_pb2.DELETE if delete else edge_pb2.CHANGED,
+        )
+        return _raise_on_error(self.call("Index", req))
+
+    def bulk_index(self, name: str, primary_keys, vectors,
+                   metadatas: Optional[List[Dict[str, Any]]] = None):
+        """Bulk ingest: one RPC carrying a packed [N, D] float block."""
+        vecs = np.ascontiguousarray(np.asarray(vectors, np.float32))
+        req = edge_pb2.BulkIndexChange(
+            collection_name=name,
+            vectors_f32=vecs.astype("<f4", copy=False).tobytes(),
+            count=vecs.shape[0],
+            primary_keys=list(primary_keys),
+            metadata=[dict_to_struct(m) for m in (metadatas or [])],
+        )
+        return _raise_on_error(self.call("BulkIndex", req))
+
+    def search(
+        self, name: str, vector, *, limit: int = 10, offset: int = 0,
+        filter_expression: Optional[FilterExpression] = None,
+        high_resource: bool = False,
+    ) -> List[dict]:
+        req = edge_pb2.SearchIndex(
+            collection_name=name,
+            vector=list(map(float, vector)),
+            offset=offset,
+            limit=limit,
+            high_resource_avaliable=high_resource,
+        )
+        if filter_expression is not None:
+            req.filter_expression.CopyFrom(filter_to_proto(filter_expression))
+        resp = _raise_on_error(self.call("Search", req))
+        return [
+            {"id": c.id, "score": c.score, "metadata": struct_to_dict(c.metadata)}
+            for c in resp.candidates
+        ]
+
+    def search_batch(
+        self, name: str, vectors, *, limit: int = 10, offset: int = 0,
+        filter_expression: Optional[FilterExpression] = None,
+        high_resource: bool = False, include_metadata: bool = False,
+    ):
+        """Batch-native search: one RPC per [Q, D] query block.
+
+        Returns ``(counts, scores, ids, metadatas)`` columnar — query q
+        owns rows [sum(counts[:q]), sum(counts[:q+1])). Queries ride as
+        raw f32 bytes (the fast path the server prefers)."""
+        q = np.ascontiguousarray(np.asarray(vectors, np.float32))
+        req = edge_pb2.SearchBatchIndex(
+            collection_name=name,
+            vectors_f32=q.astype("<f4", copy=False).tobytes(),
+            count=q.shape[0],
+            limit=limit,
+            offset=offset,
+            high_resource_avaliable=high_resource,
+            include_metadata=include_metadata,
+        )
+        if filter_expression is not None:
+            req.filter_expression.CopyFrom(filter_to_proto(filter_expression))
+        resp = _raise_on_error(self.call("SearchBatch", req))
+        mds = (
+            [struct_to_dict(m) for m in resp.metadata]
+            if include_metadata else None
+        )
+        return list(resp.counts), list(resp.scores), list(resp.ids), mds

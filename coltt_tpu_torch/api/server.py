@@ -1,0 +1,314 @@
+"""gRPC server for the edge engine mode.
+
+Port of ``coltt_tpu/api/server.py``, edge mode. Reference parity:
+``root_layer/root/rpc.go:41-137`` (keepalive params, max message sizes,
+optional TLS, panic-recovery + request-logging, graceful stop) and the 1:1
+RPC->engine shims. Service handlers are registered via gRPC generic
+handlers over the generated message classes.
+
+Every RPC body is wrapped by ``_guarded`` — the recover() analogue: any
+exception becomes a status=false response with the proto Error, never a
+transport failure, and is logged with method + latency.
+
+The core (``root``) and ``experimental`` modes are not ported yet.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent import futures
+from typing import Callable, Dict, Optional, Tuple
+
+import grpc
+import numpy as np
+from google.protobuf import empty_pb2
+
+import coltt_tpu_torch.api  # noqa: F401  (puts gen/ on sys.path)
+import common_pb2
+import edge_pb2
+
+from coltt_tpu_torch.api.marshal import (
+    dict_to_struct,
+    error_to_proto,
+    filter_from_proto,
+    schema_from_collection_msg,
+    schema_to_collection_msg,
+    struct_to_dict,
+)
+from coltt_tpu_torch.engine.edge import EdgeEngine
+from coltt_tpu_torch.engine.errors import EngineError
+from coltt_tpu_torch.utils.config import Config
+from coltt_tpu_torch.utils.logging import get_logger
+
+log = get_logger("rpc")
+
+
+def _guarded(fn: Callable, make_error_response: Callable):
+    """recover()-parity wrapper: exceptions -> error responses, with
+    per-request structured logging (interceptorLogger parity)."""
+
+    def wrapper(request, context):
+        t0 = time.perf_counter()
+        try:
+            resp = fn(request, context)
+            status = "ok"
+        except Exception as e:  # noqa: BLE001 — this IS the panic handler
+            resp = make_error_response(e)
+            status = f"error: {e}"
+        log.info(
+            fn.__qualname__,
+            extra={"kv": {
+                "latency_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                "status": status,
+            }},
+        )
+        return resp
+
+    return wrapper
+
+
+def _vec(repeated) -> np.ndarray:
+    return np.asarray(repeated, np.float32)
+
+
+class EdgeServicer:
+    SERVICE = "colttpu.edge.v1.EdgeService"
+
+    def __init__(self, engine: EdgeEngine):
+        self.engine = engine
+
+    def Ping(self, request, context):
+        return empty_pb2.Empty()
+
+    def CreateCollection(self, request, context):
+        schema = schema_from_collection_msg(request)
+        self.engine.create_collection(schema)
+        return edge_pb2.CollectionResponse(collection=request, status=True)
+
+    def DeleteCollection(self, request, context):
+        self.engine.delete_collection(request.collection_name)
+        return common_pb2.Response(status=True)
+
+    def _detail(self, name: str) -> edge_pb2.CollectionDetail:
+        info = self.engine.get_collection(name)
+        return edge_pb2.CollectionDetail(
+            collection=schema_to_collection_msg(
+                info["schema"], edge_pb2.Collection, edge_pb2.IndexField
+            ),
+            collection_size=info["size"],
+            collection_memory=info["memory_bytes"],
+            load=info["loaded"],
+            status=True,
+        )
+
+    def GetCollection(self, request, context):
+        return self._detail(request.collection_name)
+
+    def LoadCollection(self, request, context):
+        self.engine.load_collection(request.collection_name)
+        return self._detail(request.collection_name)
+
+    def ReleaseCollection(self, request, context):
+        self.engine.release_collection(request.collection_name)
+        return common_pb2.Response(status=True)
+
+    def Flush(self, request, context):
+        self.engine.flush(request.collection_name)
+        return common_pb2.Response(status=True)
+
+    def Index(self, request, context):
+        name = request.collection_name
+        schema = self.engine.get_collection(name)["schema"]
+        pk_field = schema.primary_key
+        metadata = struct_to_dict(request.metadata)
+        if request.primary_key:
+            metadata[pk_field] = request.primary_key
+        if request.changed == edge_pb2.DELETE:
+            self.engine.index(name, metadata, delete=True)
+        else:
+            self.engine.index(name, metadata, _vec(request.vectors))
+        return common_pb2.Response(status=True)
+
+    def BulkIndex(self, request, context):
+        name = request.collection_name
+        n = int(request.count)
+        schema = self.engine.get_collection(name)["schema"]
+        if request.vectors_f32:
+            vecs = np.frombuffer(request.vectors_f32, dtype="<f4")
+        else:
+            vecs = np.asarray(request.vectors, np.float32)
+        # validate against the schema dim, not just divisibility: an empty
+        # payload passes size % n == 0 and wrong dims fail much later
+        if n <= 0 or vecs.size != n * schema.dim:
+            raise EngineError(
+                f"vectors length {vecs.size} != count {n} * dim {schema.dim}"
+            )
+        vecs = vecs.reshape(n, schema.dim)
+        if len(request.primary_keys) != n:
+            raise EngineError("primary_keys must parallel rows")
+        pk_field = schema.primary_key
+        mds = [struct_to_dict(m) for m in request.metadata] or [
+            {} for _ in range(n)
+        ]
+        if len(mds) != n:
+            raise EngineError("metadata must parallel rows")
+        for pk, md in zip(request.primary_keys, mds):
+            md[pk_field] = pk
+        self.engine.index_many(name, mds, vecs)
+        return common_pb2.Response(status=True)
+
+    def SearchBatch(self, request, context):
+        name = request.collection_name
+        schema = self.engine.get_collection(name)["schema"]
+        if request.vectors_f32:
+            # raw LE f32 bytes: zero-copy vs repeated-scalar iteration
+            q = np.frombuffer(request.vectors_f32, dtype="<f4")
+        else:
+            q = np.asarray(request.vectors, np.float32)
+        n = int(request.count)
+        if n <= 0 or q.size != n * schema.dim:
+            raise EngineError(
+                f"vectors length {q.size} != count {n} * dim {schema.dim}"
+            )
+        counts, scores, pks, mds = self.engine.search_batch(
+            name, q.reshape(n, schema.dim),
+            limit=int(request.limit) or 10,
+            offset=int(request.offset),
+            filter_expression=filter_from_proto(request.filter_expression),
+            high_resource=request.high_resource_avaliable,
+            with_metadata=request.include_metadata,
+        )
+        resp = edge_pb2.SearchBatchResponse(
+            status=True, counts=counts, scores=scores, ids=pks
+        )
+        if mds is not None:
+            resp.metadata.extend(dict_to_struct(m) for m in mds)
+        return resp
+
+    def Search(self, request, context):
+        hits = self.engine.search(
+            request.collection_name,
+            _vec(request.vector),
+            limit=int(request.limit) or 10,
+            offset=int(request.offset),
+            filter_expression=filter_from_proto(request.filter_expression),
+            high_resource=request.high_resource_avaliable,
+        )
+        return edge_pb2.SearchResponse(
+            status=True,
+            candidates=[
+                edge_pb2.Candidate(
+                    metadata=dict_to_struct(h.metadata), score=h.score, id=h.id
+                )
+                for h in hits
+            ],
+        )
+
+
+EDGE_RPCS: Dict[str, Tuple[type, type]] = {
+    "Ping": (empty_pb2.Empty, empty_pb2.Empty),
+    "CreateCollection": (edge_pb2.Collection, edge_pb2.CollectionResponse),
+    "DeleteCollection": (edge_pb2.CollectionName, common_pb2.Response),
+    "GetCollection": (edge_pb2.CollectionName, edge_pb2.CollectionDetail),
+    "LoadCollection": (edge_pb2.CollectionName, edge_pb2.CollectionDetail),
+    "ReleaseCollection": (edge_pb2.CollectionName, common_pb2.Response),
+    "Flush": (edge_pb2.CollectionName, common_pb2.Response),
+    "Index": (edge_pb2.IndexChange, common_pb2.Response),
+    "BulkIndex": (edge_pb2.BulkIndexChange, common_pb2.Response),
+    "Search": (edge_pb2.SearchIndex, edge_pb2.SearchResponse),
+    "SearchBatch": (edge_pb2.SearchBatchIndex, edge_pb2.SearchBatchResponse),
+}
+
+def _error_response_factory(resp_cls):
+    def make(e: Exception):
+        if resp_cls is empty_pb2.Empty:
+            return empty_pb2.Empty()
+        resp = resp_cls()
+        if hasattr(resp, "status"):
+            resp.status = False
+        if hasattr(resp, "error"):
+            resp.error.CopyFrom(error_to_proto(e))
+        return resp
+
+    return make
+
+
+def generic_handler(servicer) -> grpc.GenericRpcHandler:
+    handlers = {}
+    for name, (req_cls, resp_cls) in EDGE_RPCS.items():
+        fn = _guarded(getattr(servicer, name), _error_response_factory(resp_cls))
+        handlers[name] = grpc.unary_unary_rpc_method_handler(
+            fn,
+            request_deserializer=req_cls.FromString,
+            response_serializer=resp_cls.SerializeToString,
+        )
+    return grpc.method_handlers_generic_handler(servicer.SERVICE, handlers)
+
+
+def _object_store(cfg: Config):
+    """Checkpoint backend: the local filesystem object store."""
+    if cfg.storage.object_store != "local":
+        raise NotImplementedError(
+            f"object store {cfg.storage.object_store!r} is not ported yet "
+            f"(ROADMAP Queue 1, S3)")
+    from coltt_tpu_torch.storage.objectstore import LocalObjectStore
+
+    return LocalObjectStore(cfg.storage.object_store_root)
+
+
+def build_servicer(mode: str, cfg: Config):
+    """Mode dispatcher (NewRootLayer parity, root_layer/root_layer.go:30-37)."""
+    if mode == "edge":
+        if int(cfg.serving.shards) != 1:
+            raise NotImplementedError(
+                "[serving].shards != 1 is not ported yet (ROADMAP Queue 1, "
+                "multi-device)")
+        return EdgeServicer(EdgeEngine(
+            _object_store(cfg),
+            device=cfg.serving.device,
+            batch_max=cfg.serving.scan_batch_max,
+            batch_wait_s=cfg.serving.scan_batch_wait_ms / 1e3,
+            warmup_batches=tuple(
+                int(b) for b in cfg.serving.precompile_batches.split(",")
+                if b.strip()
+            ),
+        ))
+    if mode in ("root", "core", "experimental"):
+        raise NotImplementedError(
+            f"mode {mode!r} is not yet ported (ROADMAP Queue 1: "
+            f"{'core/HNSW + WAL/KV' if mode != 'experimental' else 'CFLAT'})")
+    raise ValueError(f"unknown mode {mode!r} (want root|edge|experimental)")
+
+
+def create_server(
+    servicer, cfg: Optional[Config] = None, *, max_workers: Optional[int] = None
+) -> grpc.Server:
+    if max_workers is None:
+        # worker threads mostly BLOCK in the scan batcher waiting for a
+        # coalesced scan — the pool size caps how many requests can share
+        # one scan, so it must exceed the wait-window's arrival count
+        max_workers = max(
+            64, cfg.serving.scan_batch_max // 8 if cfg else 0
+        )
+    cfg = cfg or Config()
+    rl = cfg.root_layer
+    options = [
+        ("grpc.max_receive_message_length", rl.max_recv_msg_size),
+        ("grpc.max_send_message_length", rl.max_send_msg_size),
+        ("grpc.keepalive_time_ms", rl.keepalive_time_s * 1000),
+        ("grpc.keepalive_timeout_ms", rl.keepalive_timeout_s * 1000),
+        ("grpc.keepalive_permit_without_calls", 1),
+        ("grpc.http2.min_recv_ping_interval_without_data_ms", 5000),
+    ]
+    server = grpc.server(
+        futures.ThreadPoolExecutor(max_workers=max_workers), options=options
+    )
+    server.add_generic_rpc_handlers((generic_handler(servicer),))
+    if rl.tls_pem and rl.tls_key:
+        with open(rl.tls_key, "rb") as kf, open(rl.tls_pem, "rb") as cf:
+            creds = grpc.ssl_server_credentials([(kf.read(), cf.read())])
+        port = server.add_secure_port(rl.bind_address, creds)
+    else:
+        port = server.add_insecure_port(rl.bind_address)
+    server.bound_port = port  # resolved port (useful with ":0" binds)
+    return server

@@ -1,0 +1,371 @@
+"""Fused scan + top-k: the high-throughput FLAT search path.
+
+Port of ``coltt_tpu/ops/scan_pallas.py`` (K1 and its wrapper). The plain
+scan (:mod:`.topk`) materializes the ``[Q, N]`` f32 score matrix in device
+memory: 8 GB at Q=2048, N=1M, ten times the int8 corpus. K1
+(:func:`binmax_scan`, a CUDA kernel in ``csrc/binmax_scan.cu``) keeps each
+score tile on chip and reduces it to one survivor per bin of 32 rows (16
+when the store's row count is not a multiple of 4096), so only
+``[Q, N/32]`` int32 keys reach device memory; an exact ``torch.topk``
+over them finishes the selection.
+
+The survivor is one packed int32 *monotone key*. A positivity bias B (a
+Cauchy-Schwarz bound on |score|) rides in ``rowadd``, so every valid
+score lands in ``(0, 2B]``, where the raw f32 bits order like the value.
+The key is those bits with the bin's slice index in the low mantissa
+bits (a ~2^-18-of-B perturbation, below quantization error); a plain
+integer max reduces the slices (ties go to the higher slice), and the
+winner's row id is rebuilt bit-wise after the selection. Tombstoned rows
+carry a -3e38 penalty and lose to every valid row.
+
+Per-query factors (query norm, the int8 query scale) leave the kernel:
+they preserve the ranking within a query and are applied to the
+``[Q, k]`` winners. For euclidean over int8 codes the query scale
+multiplies only the dot term, so the batch shares one scalar scale.
+
+The reduction keeps one survivor per bin, so two true top-k rows in one
+bin lose the weaker one (pair collision probability bin/N: < 0.2% recall
+at k=10, bin=32, N=1M).
+
+Selection: ``final="exact"``, and ``"approx"`` / ``"auto"``, are all an
+exact ``torch.topk`` over the survivors. The JAX package's ``approx``
+is ``lax.approx_max_k``, a TPU operation that is an exact top-k on the
+CPU, where the reference is checked; so this is what the reference
+computes there. ``slot2`` and the measurement-only variants are not
+ported yet (ROADMAP Queue 1, rerank + slot2 + DistributedFlatIndex).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+
+import torch
+
+from coltt_tpu_torch.ops.distance import Metric, int8_dot, quantize_queries_i8
+from coltt_tpu_torch.ops.native import KernelLibrary
+from coltt_tpu_torch.ops.topk import scores_from_negd
+
+BIN_ROWS = 32     # max rows per candidate bin (chunk // _LANES)
+_LANES = 128      # survivors per chunk = rows per slice
+_CHUNK = 2048     # minimum chunk (shape-rule quantum); 4096 used when N allows
+_QBLOCK = 512     # max query rows per block of the padded query batch
+_PENALTY = -3.0e38
+_INVALID_CUT = -1.0e30
+
+# code dtype -> the number csrc/binmax_scan.cu dispatches on
+_CODE_DTYPES = {
+    torch.int8: 0,
+    torch.float8_e4m3fn: 1,
+    torch.bfloat16: 2,
+    torch.float32: 3,
+}
+# bytes of [Q, rows] f32 transients the plain version keeps alive per step
+_REF_STEP_BYTES = 1 << 28
+
+_KERNELS = KernelLibrary("binmax_scan")
+_LAUNCHES_MU = threading.Lock()  # gRPC worker threads launch concurrently
+
+
+def chunk_for(n: int) -> int:
+    """Row chunk for an N-row store: the largest supported chunk dividing N.
+    Everything deriving bin order (id reconstruction) uses this rule."""
+    return 2 * _CHUNK if n % (2 * _CHUNK) == 0 else _CHUNK
+
+
+def supports(n: int, dim: int, metric, dtype) -> bool:
+    """Whether the fused kernel handles this store shape."""
+    metric = Metric.parse(metric)
+    return (
+        metric in (Metric.COSINE, Metric.EUCLIDEAN)
+        and dim % 128 == 0
+        and n % _CHUNK == 0
+        and dtype in _CODE_DTYPES
+    )
+
+
+def _pick_qblock(q: int, align: int) -> tuple[int, int]:
+    """(padded q, block) — blocks of <=_QBLOCK rows, aligned, dividing qp.
+    The padded batch is the shape K1 and its plain version take."""
+    blocks = -(-q // _QBLOCK)
+    per_block = -(-q // blocks)
+    qblock = -(-per_block // align) * align
+    return blocks * qblock, qblock
+
+
+def load_kernels() -> KernelLibrary:
+    """Build (first use only) and load K1's library; returns its handle,
+    whose ``build_seconds`` / ``build_log`` describe the build."""
+    lib = _KERNELS.load()
+    fn = lib.coltt_binmax_scan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.coltt_error_string.argtypes = [ctypes.c_int]
+        lib.coltt_error_string.restype = ctypes.c_char_p
+    return _KERNELS
+
+
+def binmax_scan_ref(queries, codes, rowmul, rowadd, *, chunk: int,
+                    round_bf16: bool) -> torch.Tensor:
+    """Plain PyTorch version of K1: ``[qp, N // chunk * 128]`` int32 keys.
+
+    Blocked over row chunks so that it never holds ``[Q, N]`` at once.
+    The int8 product is exact (``torch._int_mm``); float codes are
+    multiplied as f32 operands (bf16-rounded when ``round_bf16``) in an
+    f32 product, which on CUDA needs TF32 off. The epilogue is one
+    multiply and one add, each rounded, as in the kernel.
+    """
+    qp = queries.shape[0]
+    n = codes.shape[0]
+    nsl = chunk // _LANES
+    out = torch.empty((qp, n // chunk * _LANES), dtype=torch.int32,
+                      device=codes.device)
+    slices = torch.arange(nsl, dtype=torch.int32, device=codes.device).view(
+        1, 1, nsl, 1)
+    step = max(1, _REF_STEP_BYTES // (qp * chunk * 4)) * chunk
+    if codes.dtype == torch.int8:
+        a = queries
+    else:
+        a = queries.to(torch.float32)
+        if round_bf16:
+            a = a.to(torch.bfloat16).to(torch.float32)
+    for r0 in range(0, n, step):
+        cb = codes[r0:r0 + step]
+        rows = cb.shape[0]
+        if codes.dtype == torch.int8:
+            dots = int8_dot(a, cb).to(torch.float32)
+        else:
+            b = cb.to(torch.bfloat16) if round_bf16 else cb
+            dots = a @ b.to(torch.float32).t()
+        val = dots * rowmul[r0:r0 + rows]
+        val = val + rowadd[r0:r0 + rows]
+        keys = (val.view(torch.int32).view(qp, rows // chunk, nsl, _LANES)
+                & -nsl) | slices
+        c0 = r0 // chunk * _LANES
+        out[:, c0:c0 + rows // chunk * _LANES] = keys.amax(dim=2).reshape(qp, -1)
+    return out
+
+
+def binmax_scan(queries, codes, rowmul, rowadd, *, chunk: int,
+                round_bf16: bool) -> torch.Tensor:
+    """K1: packed per-bin max keys, ``[qp, N // chunk * 128]`` int32.
+
+    Replaces ``coltt_tpu/ops/scan_pallas.py::_kernel`` (launched by
+    ``_binmax_scan``). Column ``c`` is chunk ``c // 128``, lane ``c % 128``;
+    the winning slice index is in the key's low bits.
+
+    On a CUDA tensor this launches ``csrc/binmax_scan.cu`` or raises; on
+    a CPU tensor it runs :func:`binmax_scan_ref`. ``binmax_scan.launches``
+    counts kernel launches.
+
+    What bounds it on the card: at N=1M, D=768 the int8 codes are 0.8 GB,
+    0.24 ms of H100 memory bandwidth, while the product is 2*Q*N*D
+    operations (3.2e12 at Q=2048). The design reads the codes about once
+    (query tiles are the grid's fastest axis, so the blocks sharing a
+    chunk hit L2) and never writes the [Q, N] scores; the product runs
+    on CUDA cores (``__dp4a`` / ``fmaf``), so at serving batch sizes the
+    kernel is bound by that arithmetic, not by bytes. Tensor-core tiles
+    (IMMA / wgmma) fed by TMA are the next step.
+    """
+    if codes.device.type == "cpu":
+        return binmax_scan_ref(queries, codes, rowmul, rowadd, chunk=chunk,
+                               round_bf16=round_bf16)
+    if codes.device.type != "cuda":
+        raise ValueError(f"binmax_scan: unsupported device {codes.device}")
+    tensors = (queries, codes, rowmul, rowadd)
+    if any(t.device != codes.device for t in tensors):
+        raise ValueError("binmax_scan: tensors on different devices")
+    if codes.dtype not in _CODE_DTYPES:
+        raise TypeError(f"binmax_scan: unsupported code dtype {codes.dtype}")
+    want_q = torch.int8 if codes.dtype == torch.int8 else torch.float32
+    if queries.dtype != want_q:
+        raise TypeError(
+            f"binmax_scan: {codes.dtype} codes need {want_q} queries, "
+            f"got {queries.dtype}")
+    if rowmul.dtype != torch.float32 or rowadd.dtype != torch.float32:
+        raise TypeError("binmax_scan: rowmul / rowadd must be float32")
+    qp, d = queries.shape
+    n = codes.shape[0]
+    if (codes.dim() != 2 or codes.shape[1] != d or rowmul.shape != (n,)
+            or rowadd.shape != (n,)):
+        raise ValueError(
+            f"binmax_scan: shapes queries {tuple(queries.shape)}, codes "
+            f"{tuple(codes.shape)}, rowmul {tuple(rowmul.shape)}, rowadd "
+            f"{tuple(rowadd.shape)}")
+    if chunk not in (_CHUNK, 2 * _CHUNK) or n % chunk or d % 128 or qp == 0:
+        raise ValueError(
+            f"binmax_scan: needs D % 128 == 0 and N % chunk == 0 with chunk "
+            f"in (2048, 4096); got N={n}, D={d}, chunk={chunk}, Q={qp}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("binmax_scan: tensors must be contiguous")
+    if queries.data_ptr() % 16 or codes.data_ptr() % 16:
+        raise ValueError("binmax_scan: queries / codes must be 16-byte aligned")
+
+    lib = load_kernels().load()
+    out = torch.empty((qp, n // chunk * _LANES), dtype=torch.int32,
+                      device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = lib.coltt_binmax_scan(
+            _CODE_DTYPES[codes.dtype], queries.data_ptr(), codes.data_ptr(),
+            rowmul.data_ptr(), rowadd.data_ptr(), out.data_ptr(),
+            qp, n, d, chunk // _LANES, int(bool(round_bf16)), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"binmax_scan launch failed: "
+            f"{lib.coltt_error_string(err).decode()}")
+    with _LAUNCHES_MU:
+        binmax_scan.launches += 1
+    return out
+
+
+binmax_scan.launches = 0
+
+
+def scan_inputs(queries, codes, scale, sqnorm, valid, *, metric):
+    """The operands K1 gets from the store's state and a query batch.
+
+    Returns a dict: ``queries`` (the padded kernel queries: int8 for int8
+    codes, else f32), ``rowmul`` / ``rowadd`` ([N] f32 per-row factors
+    with the tombstone penalty and the bias folded in), ``bias``, and the
+    per-query affine ``qmul`` / ``qadd`` that maps un-biased winners back
+    to negated distances. Mirrors the JAX wrapper's arithmetic step by step.
+    """
+    metric = Metric.parse(metric)
+    dev = codes.device
+    f32 = torch.float32
+    queries = torch.as_tensor(queries, dtype=f32, device=dev)
+    q, d = queries.shape
+    n = codes.shape[0]
+    int8 = codes.dtype == torch.int8
+    qp, _ = _pick_qblock(q, 32 if int8 else 8)
+    if qp != q:
+        queries = torch.cat([queries, queries.new_zeros((qp - q, d))])
+
+    scale_row = (torch.ones(n, dtype=f32, device=dev) if scale is None
+                 else scale.reshape(n))
+    penalty = (torch.where(valid, torch.zeros((), dtype=f32, device=dev),
+                           torch.full((), _PENALTY, dtype=f32, device=dev))
+               if valid is not None else torch.zeros(n, dtype=f32, device=dev))
+
+    qsq = (queries * queries).sum(dim=1, keepdim=True)
+    if int8:
+        if metric == Metric.COSINE:
+            qkern, qscale = quantize_queries_i8(queries)
+        else:
+            # euclidean: the query scale multiplies only the dot term, not
+            # -|v|^2, so it cannot leave the kernel per query — one scalar
+            gmax = queries.abs().amax()
+            gscale = torch.where(gmax > 0, gmax / 127.0, torch.ones_like(gmax))
+            qkern = torch.round(queries / gscale).clamp(-127, 127).to(torch.int8)
+    else:
+        qkern = queries
+
+    if metric == Metric.COSINE:
+        rowmul = scale_row * torch.rsqrt(sqnorm.clamp(min=1e-30))
+        rowadd = penalty
+        qn = torch.sqrt(qsq).clamp(min=1e-30)
+        qmul = (qscale / qn) if int8 else (1.0 / qn)
+        qadd = torch.full((), -1.0, dtype=f32, device=dev)
+        # |val| <= ||q_kern|| by Cauchy-Schwarz: static for int8 queries
+        if int8:
+            bound = torch.tensor(127.0 * math.sqrt(d), dtype=f32, device=dev)
+        else:
+            bound = torch.sqrt(qsq.amax())
+    elif metric == Metric.EUCLIDEAN:
+        rowmul = 2.0 * scale_row * (gscale if int8 else 1.0)
+        rowadd = penalty - sqnorm
+        qmul = torch.ones((qp, 1), dtype=f32, device=dev)
+        qadd = -qsq
+        maxsq = sqnorm.amax()
+        qn_bound = (torch.tensor(127.0 * math.sqrt(d), dtype=f32, device=dev)
+                    * gscale if int8 else torch.sqrt(qsq.amax()))
+        bound = 2.0 * qn_bound * torch.sqrt(maxsq) + maxsq
+    else:
+        raise ValueError(f"fused scan supports cosine and euclidean, not {metric.name}")
+    # 2x margin covers bf16 operand rounding and the f32 rounding of val;
+    # the clamp keeps penalty + bias finite
+    bias = (2.0 * bound).clamp(max=1e36)
+    return {
+        "queries": qkern.contiguous(),
+        "rowmul": rowmul.contiguous(),
+        "rowadd": (rowadd + bias).contiguous(),
+        "bias": bias,
+        "qmul": qmul,
+        "qadd": qadd,
+        "q": q,
+    }
+
+
+def fused_scan_neg_topk(
+    queries,
+    codes,
+    scale,
+    sqnorm,
+    valid,
+    *,
+    k: int,
+    metric: Metric = Metric.COSINE,
+    compute_dtype=torch.bfloat16,
+    final: str = "auto",
+):
+    """Fused top-k: ``(negdist [Q,k], ids [Q,k])``.
+
+    Drop-in for :func:`coltt_tpu_torch.ops.topk.scan_neg_topk` where
+    :func:`supports` holds. Float codes are multiplied as ``compute_dtype``
+    operands (bf16, or f32 for unquantized stores); int8 codes take the
+    s8 x s8 product with queries quantized on the fly. ``final``: "exact",
+    "approx" or "auto", all an exact top-k over the survivors (module
+    docstring).
+    """
+    metric = Metric.parse(metric)
+    if final not in ("auto", "exact", "approx"):
+        raise NotImplementedError(
+            f"final={final!r} is not ported yet (ROADMAP Queue 1, rerank + "
+            f"slot2 + DistributedFlatIndex)")
+    if codes.dtype != torch.int8 and compute_dtype not in (torch.bfloat16,
+                                                           torch.float32):
+        raise ValueError(f"fused scan computes in bf16 or f32, not {compute_dtype}")
+    n = codes.shape[0]
+    chunk = chunk_for(n)
+    nsl = chunk // _LANES
+    sbits = nsl.bit_length() - 1
+    inp = scan_inputs(queries, codes, scale, sqnorm, valid, metric=metric)
+
+    keys = binmax_scan(
+        inp["queries"], codes, inp["rowmul"], inp["rowadd"], chunk=chunk,
+        round_bf16=compute_dtype == torch.bfloat16,
+    )
+    kk = min(k, keys.shape[1])
+    # select on the f32 VIEW of the keys: valid keys are bit patterns of
+    # positive normal floats (order kept, all 32 bits), tombstones are
+    # ~-3e38 normals that sort last
+    fsel, pos = torch.topk(keys.view(torch.float32), kk, dim=1, sorted=True)
+    sel = fsel.view(torch.int32)
+    ids = (pos // _LANES) * chunk + (sel & (nsl - 1)).to(pos.dtype) * _LANES \
+        + pos % _LANES
+    best = (sel & -(1 << sbits)).view(torch.float32)
+    # un-bias, then the per-query affine back to negated distances
+    negd = (best - inp["bias"]) * inp["qmul"] + inp["qadd"]
+    negd = torch.where(best > _INVALID_CUT, negd,
+                       torch.full_like(negd, -float("inf")))
+    q = inp["q"]
+    return negd[:q], ids[:q].to(torch.int32)
+
+
+def fused_scan_topk(
+    queries, codes, scale, sqnorm, valid, *, k,
+    metric: Metric = Metric.COSINE, compute_dtype=torch.bfloat16,
+    final: str = "auto",
+):
+    """0-100-scored variant (scan_topk parity)."""
+    metric = Metric.parse(metric)
+    negd, idx = fused_scan_neg_topk(
+        queries, codes, scale, sqnorm, valid, k=k, metric=metric,
+        compute_dtype=compute_dtype, final=final,
+    )
+    return scores_from_negd(negd, metric), idx

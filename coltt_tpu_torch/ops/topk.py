@@ -1,0 +1,152 @@
+"""Blocked scan + top-k on torch tensors (port of ``coltt_tpu/ops/topk.py``).
+
+The reference's per-shard bounded heaps (``edge/f16_vectorstore.go:131-187``)
+become a two-stage top-k: the row axis is cut into blocks that bound the
+``[Q, block]`` score transients, each block yields its local top-k, and a
+final ``torch.topk`` merges the ``[Q, blocks*k]`` partials.
+
+The block budget comes from the device's free memory
+(``torch.cuda.mem_get_info``), not from a constant sized for one card.
+``rerank_neg_topk`` / ``rescore_topk`` are not ported yet (ROADMAP Queue 1,
+rerank + slot2 + DistributedFlatIndex).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from coltt_tpu_torch.ops.distance import Metric, scan_distances
+from coltt_tpu_torch.ops.score import normalize_score
+
+# f32 [Q, block] tensors alive at once inside scan_distances + the
+# selection (dots, the epilogue's temporaries, the masked distances)
+_LIVE_SCORE_TENSORS = 4
+# share of the free device memory one scan block may take
+_FREE_SHARE = 4
+# CPU tensors: fixed block budget (host memory is not queried)
+_CPU_BUDGET = 1 << 30
+_MIN_BLOCK = 8192
+
+
+def _block_rows(n: int, q: int, row_bytes: int, device: torch.device) -> int:
+    """Rows per scan block so that the block's transients fit the budget."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        budget = free // _FREE_SHARE
+    else:
+        budget = _CPU_BUDGET
+    per_row = q * 4 * _LIVE_SCORE_TENSORS + row_bytes
+    return max(_MIN_BLOCK, budget // per_row) if per_row * n > budget else n
+
+
+def _select_topk(neg, k):
+    return torch.topk(neg, k, dim=1, largest=True, sorted=True)
+
+
+def scan_neg_topk(
+    queries,
+    codes,
+    scale,
+    sqnorm,
+    valid,
+    *,
+    k: int,
+    metric: Metric = Metric.COSINE,
+    compute_dtype=torch.bfloat16,
+    block_rows=None,
+):
+    """Top-k scan returning raw ranking values ``(negdist [Q,k], ids [Q,k])``.
+
+    Ranks on negated distance, not the 0-100 score (the euclidean score
+    clips at 0 and would tie all far rows). ``block_rows=None`` sizes the
+    blocks from the free memory of ``codes``' device. Ties break as
+    ``torch.topk`` breaks them.
+    """
+    metric = Metric.parse(metric)
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=codes.device)
+    n, d = codes.shape
+    q = queries.shape[0]
+    # the dequantized / compute-dtype copy of a code block
+    row_bytes = 0 if codes.dtype == torch.float32 else d * 4 * 2
+    block = block_rows or _block_rows(n, q, row_bytes, codes.device)
+    kk = min(k, n)
+
+    vals, ids = [], []
+    for start in range(0, n, block):
+        stop = min(n, start + block)
+        dist = scan_distances(
+            queries,
+            codes[start:stop],
+            None if scale is None else scale[start:stop],
+            None if sqnorm is None else sqnorm[start:stop],
+            None if valid is None else valid[start:stop],
+            metric=metric,
+            compute_dtype=compute_dtype,
+        )
+        v, i = _select_topk(-dist, min(kk, stop - start))
+        vals.append(v)
+        ids.append(i + start)
+    if len(vals) == 1:
+        return vals[0], ids[0].to(torch.int32)
+    vals = torch.cat(vals, dim=1)
+    ids = torch.cat(ids, dim=1)
+    negd, sel = _select_topk(vals, kk)
+    return negd, torch.gather(ids, 1, sel).to(torch.int32)
+
+
+def scan_topk(
+    queries,
+    codes,
+    scale,
+    sqnorm,
+    valid,
+    *,
+    k: int,
+    metric: Metric = Metric.COSINE,
+    compute_dtype=torch.bfloat16,
+    block_rows=None,
+):
+    """Top-k scan over the full store: ``(scores [Q, k], ids [Q, k])``,
+    scores on the 0-100 scale, descending; tombstoned rows surface as -inf
+    score (callers drop them)."""
+    metric = Metric.parse(metric)
+    negd, idx = scan_neg_topk(
+        queries, codes, scale, sqnorm, valid,
+        k=k, metric=metric, compute_dtype=compute_dtype, block_rows=block_rows,
+    )
+    return scores_from_negd(negd, metric), idx
+
+
+def scores_from_negd(negd, metric: Metric):
+    """Negated distances -> 0-100 scores, -inf kept for empty slots."""
+    return torch.where(torch.isinf(negd), torch.full_like(negd, -float("inf")),
+                       normalize_score(-negd, metric))
+
+
+def fetch_scores_ids(scores, ids):
+    """Device -> host: ``(scores [Q, k] f32, ids [Q, k] int32)`` numpy."""
+    return scores.cpu().numpy(), ids.to(torch.int32).cpu().numpy()
+
+
+def compute_recall(result_ids, truth_ids) -> float:
+    """Fraction of ground-truth ids present in the results, averaged over
+    queries (ComputeRecall parity, edge/resultset.go:54-64).
+
+    Both arguments are ``[Q, k]`` id arrays; negative ids (empty slots)
+    in the truth are ignored.
+    """
+    result_ids = np.asarray(result_ids)
+    truth_ids = np.asarray(truth_ids)
+    if result_ids.ndim == 1:
+        result_ids = result_ids[None]
+        truth_ids = truth_ids[None]
+    total, hit = 0, 0
+    for r in range(truth_ids.shape[0]):
+        truth = set(int(t) for t in truth_ids[r] if t >= 0)
+        if not truth:
+            continue
+        got = set(int(t) for t in result_ids[r])
+        hit += len(truth & got)
+        total += len(truth)
+    return hit / total if total else 1.0

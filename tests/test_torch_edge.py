@@ -1,0 +1,254 @@
+"""The port's edge slice as a whole vs the JAX engine, at 8192 x 128.
+
+Both engines serve one int8 cosine collection built from the same numpy
+data: create -> index_many -> search_batch (plain and high_resource) ->
+filtered search -> flush / release / load. They must return the same
+primary keys, with scores within the tolerance of
+``tests/test_torch_flat_store.py`` (1e-3 on the 0-100 scale, near-ties
+allowed to trade places). Each engine loads the three checkpoint objects
+the other flushed. A gRPC round trip runs through the port's server and
+``EdgeClient``. Queries are f16 values (see test_torch_flat_store.py).
+"""
+
+import grpc
+import numpy as np
+import pytest
+import torch
+from test_torch_flat_store import assert_same_search
+
+from coltt_tpu.engine.edge import EdgeEngine as JEdgeEngine
+from coltt_tpu.index.schema import CollectionSchema as JSchema
+from coltt_tpu.storage.objectstore import LocalObjectStore as JObjectStore
+from coltt_tpu_torch.api.client import EdgeClient
+from coltt_tpu_torch.api.server import build_servicer, create_server
+from coltt_tpu_torch.engine.edge import EdgeEngine
+from coltt_tpu_torch.index.filter import Filter, Op, Or
+from coltt_tpu_torch.index.schema import CollectionSchema, FieldSchema, FieldType
+from coltt_tpu_torch.ops.quant import Quantization
+from coltt_tpu_torch.storage.objectstore import LocalObjectStore
+from coltt_tpu_torch.utils.config import Config
+
+torch.set_num_threads(2)
+
+N, DIM, K, TAGS = 6000, 128, 10, 8
+NAME = "docs"
+
+
+def _schema():
+    return CollectionSchema(
+        name=NAME, dim=DIM, quantization=Quantization.I8,
+        fields=[FieldSchema("pk", FieldType.STRING, primary_key=True),
+                FieldSchema("tag", FieldType.STRING)],
+    )
+
+
+def _data(seed=0):
+    rng = np.random.default_rng(seed)
+    vecs = rng.standard_normal((N, DIM)).astype(np.float32)
+    mds = [{"pk": f"d{i}", "tag": f"t{i % TAGS}"} for i in range(N)]
+    queries = rng.standard_normal((16, DIM)).astype(np.float16).astype(np.float32)
+    return vecs, mds, queries
+
+
+def _rows(counts, scores, pks):
+    """Columnar SearchBatch results -> per-query (scores, pk) arrays."""
+    s = np.full((len(counts), K), -np.inf, np.float32)
+    p = np.full((len(counts), K), "", object)
+    row = 0
+    for q, c in enumerate(counts):
+        s[q, :c] = scores[row:row + c]
+        p[q, :c] = pks[row:row + c]
+        row += c
+    return s, p
+
+
+def _same(jres, tres):
+    """search_batch results of both engines: same pks up to near-ties."""
+    js, jp = _rows(*jres[:3])
+    ts, tp = _rows(*tres[:3])
+    ids = {pk: i for i, pk in enumerate(set(jp.ravel()) | set(tp.ravel()))}
+    to_ids = np.vectorize(lambda pk: ids[pk] if pk else -1)
+    assert_same_search((js, to_ids(jp)), (ts, to_ids(tp)))
+
+
+def _engines(tmp_path):
+    j = JEdgeEngine(JObjectStore(str(tmp_path / "jax")), precompile_batches=())
+    t = EdgeEngine(LocalObjectStore(str(tmp_path / "port")), device="cpu",
+                   warmup_batches=(1, 4))
+    return j, t
+
+
+def test_edge_slice_matches_jax_engine(tmp_path):
+    vecs, mds, queries = _data()
+    j, t = _engines(tmp_path)
+    j.create_collection(JSchema.from_dict(_schema().to_dict()))
+    t.create_collection(_schema())
+    for e in (j, t):
+        for lo in range(0, N, 2000):
+            e.index_many(NAME, [dict(m) for m in mds[lo:lo + 2000]],
+                         vecs[lo:lo + 2000])
+    assert j.get_collection(NAME)["size"] == t.get_collection(NAME)["size"] == N
+    assert (j.get_collection(NAME)["memory_bytes"]
+            == t.get_collection(NAME)["memory_bytes"])
+
+    for hr in (False, True):
+        _same(j.search_batch(NAME, queries, limit=K, high_resource=hr),
+              t.search_batch(NAME, queries, limit=K, high_resource=hr))
+    # a stored row finds itself first, through both scans
+    for hr in (False, True):
+        hits = t.search(NAME, vecs[42], limit=3, high_resource=hr)
+        assert hits[0].id == "d42" and hits[0].metadata["tag"] == "t2"
+
+    # filtered: one tag gathers 750 rows; an OR of four takes the masked scan
+    one = Filter("tag", Op.EQ, "t3")
+    four = Or(*[Filter("tag", Op.EQ, f"t{i}") for i in range(4)])
+    for expr in (one, four):
+        jres = j.search_batch(NAME, queries, limit=K, filter_expression=expr.to_dict())
+        tres = t.search_batch(NAME, queries, limit=K, filter_expression=expr)
+        _same(jres, tres)
+    hits = t.search(NAME, queries[0], limit=K, filter_expression=one)
+    assert len(hits) == K and all(h.metadata["tag"] == "t3" for h in hits)
+
+    # deletes land in both, then each engine reloads its own checkpoint
+    for e in (j, t):
+        for i in range(0, 300, 3):
+            e.index(NAME, {"pk": f"d{i}"}, delete=True)
+        e.flush(NAME)
+        e.release_collection(NAME)
+        e.load_collection(NAME)
+    for hr in (False, True):
+        jres = j.search_batch(NAME, queries, limit=K, high_resource=hr)
+        tres = t.search_batch(NAME, queries, limit=K, high_resource=hr)
+        _same(jres, tres)
+        assert not {f"d{i}" for i in range(0, 300, 3)} & set(tres[2])
+
+
+def test_checkpoints_load_across_packages(tmp_path):
+    """The three checkpoint objects each engine flushes load in the other."""
+    vecs, mds, queries = _data(seed=1)
+    j, t = _engines(tmp_path)
+    j.create_collection(JSchema.from_dict(_schema().to_dict()))
+    t.create_collection(_schema())
+    for e in (j, t):
+        e.index_many(NAME, [dict(m) for m in mds], vecs)
+        e.release_collection(NAME)  # flushes
+
+    t_reads_jax = EdgeEngine(LocalObjectStore(str(tmp_path / "jax")), device="cpu",
+                             warmup_batches=())
+    j_reads_port = JEdgeEngine(JObjectStore(str(tmp_path / "port")),
+                               precompile_batches=())
+    for e in (j, t, t_reads_jax, j_reads_port):
+        e.load_collection(NAME)
+        assert e.get_collection(NAME)["size"] == N
+    want = j.search_batch(NAME, queries, limit=K, with_metadata=True)
+    for e in (t, t_reads_jax, j_reads_port):
+        got = e.search_batch(NAME, queries, limit=K, with_metadata=True)
+        _same(want, got)
+        assert all(m["tag"] == f"t{int(pk[1:]) % TAGS}"
+                   for m, pk in zip(got[3], got[2]))
+    expr = Filter("tag", Op.EQ, "t5")
+    _same(j.search_batch(NAME, queries, limit=K, filter_expression=expr.to_dict()),
+          t_reads_jax.search_batch(NAME, queries, limit=K, filter_expression=expr))
+
+
+@pytest.fixture
+def edge_client(tmp_path):
+    cfg = Config()
+    cfg.root_layer.bind_address = "127.0.0.1:0"
+    cfg.storage.object_store_root = str(tmp_path / "objects")
+    cfg.serving.device = "cpu"
+    cfg.serving.precompile_batches = "1"
+    cfg.root_layer.max_recv_msg_size = 64 << 20
+    server = create_server(build_servicer("edge", cfg), cfg)
+    server.start()
+    channel = grpc.insecure_channel(
+        f"127.0.0.1:{server.bound_port}",
+        options=[("grpc.max_send_message_length", 64 << 20)])
+    try:
+        yield EdgeClient(channel)
+    finally:
+        channel.close()
+        server.stop(None)
+
+
+def test_grpc_round_trip(edge_client):
+    vecs, mds, queries = _data(seed=2)
+    c = edge_client
+    assert c.ping()
+    c.create_collection(_schema())
+    c.bulk_index(NAME, [m["pk"] for m in mds[:4000]], vecs[:4000],
+                 [{"tag": m["tag"]} for m in mds[:4000]])
+    c.bulk_index(NAME, [m["pk"] for m in mds[4000:]], vecs[4000:],
+                 [{"tag": m["tag"]} for m in mds[4000:]])
+    assert c.get_collection(NAME).collection_size == N
+    for hr in (False, True):
+        counts, scores, ids, _ = c.search_batch(NAME, vecs[:8], limit=K,
+                                                high_resource=hr)
+        assert counts == [K] * 8
+        assert [ids[q * K] for q in range(8)] == [f"d{q}" for q in range(8)]
+    hits = c.search(NAME, vecs[9], limit=5, high_resource=True,
+                    filter_expression=Filter("tag", Op.EQ, "t1"))
+    assert hits[0]["id"] == "d9" and all(h["metadata"]["tag"] == "t1" for h in hits)
+    c.index(NAME, "d0", delete=True)
+    c.flush(NAME)
+    c.release_collection(NAME)
+    assert not c.get_collection(NAME).load
+    c.load_collection(NAME)
+    _, _, ids, _ = c.search_batch(NAME, vecs[:8], limit=K, high_resource=True)
+    assert "d0" not in ids and ids[K] == "d1"
+    with pytest.raises(RuntimeError, match="not ported"):
+        c.create_collection(CollectionSchema(
+            name="pq", dim=DIM, quantization=Quantization.PQ,
+            fields=[FieldSchema("pk", FieldType.STRING, primary_key=True)]))
+
+
+def test_unported_modes_raise():
+    cfg = Config()
+    for mode in ("root", "experimental"):
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            build_servicer(mode, cfg)
+
+
+def test_main_serves_edge_mode(tmp_path):
+    """``python -m coltt_tpu_torch`` serves the edge mode from a config
+    file and stops cleanly on SIGTERM."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    (tmp_path / "coltt.toml").write_text(
+        'mode = "edge"\n'
+        "[root_layer]\n"
+        f'bind_address = "127.0.0.1:{port}"\n'
+        'prof_address = "127.0.0.1:0"\n'
+        "[storage]\n"
+        f'data_dir = "{tmp_path / "data"}"\n'
+        f'object_store_root = "{tmp_path / "objects"}"\n'
+        "[serving]\n"
+        'device = "cpu"\n')
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [repo, os.environ.get("PYTHONPATH")])))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "coltt_tpu_torch", "--config", "coltt.toml"],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+        grpc.channel_ready_future(channel).result(timeout=60)
+        client = EdgeClient(channel)
+        assert client.ping()
+        client.create_collection(_schema())
+        assert client.get_collection(NAME).load
+        channel.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    assert proc.returncode == 0, out.decode()
+    assert b"server started" in out and b"bye" in out
+    assert (tmp_path / "objects" / NAME / f"{NAME}.meta.json").exists()

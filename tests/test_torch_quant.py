@@ -1,0 +1,81 @@
+"""Port codecs vs the JAX package: codes bit-identical, same fidelity contract.
+
+Both packages quantize the same numpy input; every codec rounds to
+nearest even in both frameworks, so codes and scales must agree bit for
+bit. The 0-100 cosine score contract of ``tests/test_quant.py`` (<= 1.0
+point on dequantized pairs) must hold for the port's codecs too.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from coltt_tpu.ops.quant import Quantization as JQuant
+from coltt_tpu.ops.quant import quantize as j_quantize
+from coltt_tpu_torch.ops.distance import Metric, pairwise_distance
+from coltt_tpu_torch.ops.quant import (
+    Quantization,
+    dequantize,
+    quantize,
+    storage_dtype,
+)
+from coltt_tpu_torch.ops.score import normalize_score
+
+torch.set_num_threads(2)
+
+DENSE = [Quantization.NONE, Quantization.F16, Quantization.BF16,
+         Quantization.F8, Quantization.I8]
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a).view(np.uint8)
+
+
+def _torch_bits(t: torch.Tensor) -> np.ndarray:
+    return t.contiguous().view(torch.uint8).numpy()
+
+
+def test_enum_numbers_match_the_reference():
+    for q in JQuant:
+        assert Quantization[q.name] == int(q)
+    assert Metric.COSINE == 0 and Metric.EUCLIDEAN == 1 and Metric.MANHATTAN == 2
+
+
+@pytest.mark.parametrize("q", DENSE, ids=lambda q: q.name)
+@pytest.mark.parametrize("dim", [128, 768])
+def test_codes_bit_identical_to_jax(q, dim, rng):
+    # include exact zeros, a zero row, and values at rounding ties
+    x = rng.standard_normal((64, dim)).astype(np.float32)
+    x[3] = 0.0
+    x[5, :8] = np.array([0.5, 1.5, -2.5, 127.5, 3.0, -0.0, 0.25, 1e-30])
+    jc, js = j_quantize(jnp.asarray(x), JQuant(int(q)))
+    tc, ts = quantize(torch.from_numpy(x), q)
+    assert tc.dtype == storage_dtype(q)
+    np.testing.assert_array_equal(_bits(np.asarray(jc)), _torch_bits(tc))
+    np.testing.assert_array_equal(np.asarray(js), ts.numpy())
+
+
+@pytest.mark.parametrize(
+    "q", [Quantization.F16, Quantization.BF16, Quantization.F8, Quantization.I8],
+    ids=lambda q: q.name,
+)
+@pytest.mark.parametrize("dim", [128, 768, 3072])
+def test_cosine_score_delta_under_one_point(q, dim, rng):
+    xs = torch.from_numpy(rng.standard_normal((256, dim), dtype=np.float32))
+    ys = torch.from_numpy(rng.standard_normal((256, dim), dtype=np.float32))
+    dx = dequantize(*quantize(xs, q))
+    dy = dequantize(*quantize(ys, q))
+    s_exact = normalize_score(
+        torch.diagonal(pairwise_distance(xs, ys, Metric.COSINE)), Metric.COSINE)
+    s_quant = normalize_score(
+        torch.diagonal(pairwise_distance(dx, dy, Metric.COSINE)), Metric.COSINE)
+    delta = (s_exact - s_quant).abs().max().item()
+    assert delta <= 1.0, f"{q.name} dim={dim}: max score delta {delta}"
+
+
+def test_sparse_codecs_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        storage_dtype(Quantization.PQ)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quantize(torch.zeros(2, 8), Quantization.BQ)

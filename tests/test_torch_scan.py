@@ -1,0 +1,324 @@
+"""K1 and the fused scan of the port vs the JAX package (Pallas interpreted).
+
+Inputs are made with numpy and handed to both packages. The JAX kernel
+runs interpreted on the CPU, as ``tests/test_scan_pallas.py`` runs it; the
+port's wrapper takes its plain version on CPU tensors.
+
+Tolerances, stated once:
+
+- int8 codes, K1 keys: XLA on the CPU contracts the reference kernel's
+  epilogue ``dots * rowmul + rowadd`` into one FMA, while the port rounds
+  the product and the sum separately (``__fmul_rn`` / ``__fadd_rn`` in the
+  CUDA kernel, two tensor ops in the plain version). So a reference key
+  may sit one packing step (``nsl`` in int32, the 1-ulp rounding
+  difference pushed across the masked low bits) from the port's. The
+  port's keys are checked bit for bit against a numpy model of the
+  two-rounding epilogue, and against the reference within that one step.
+- float codes, K1 keys: the f32 sum over D runs in another order; masked
+  values agree within 1e-4 of the bias (D * f32 eps relative to |q||c|,
+  with margin).
+- fused top-k: ids equal to the reference's; negated distances within
+  1e-4 absolute (cosine) or 1e-4 relative to the bias (euclidean), the
+  packing perturbation of 2^-18 of the bias and the rounding above.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from coltt_tpu.ops import scan_pallas as jsp
+from coltt_tpu.ops.quant import Quantization as JQuant
+from coltt_tpu.ops.quant import dequantize as j_dequantize
+from coltt_tpu.ops.quant import quantize as j_quantize
+from coltt_tpu_torch.ops import fused_scan as fs
+from coltt_tpu_torch.ops.distance import Metric
+from coltt_tpu_torch.ops.topk import scan_topk
+
+torch.set_num_threads(2)
+
+N, D, K = 8192, 128, 5
+BIN_ROWS = fs.BIN_ROWS
+_NP_INT = {1: np.int8, 2: np.int16, 4: np.int32}
+_TORCH_DTYPE = {
+    JQuant.NONE: torch.float32,
+    JQuant.BF16: torch.bfloat16,
+    JQuant.F8: torch.float8_e4m3fn,
+    JQuant.I8: torch.int8,
+}
+
+
+def _to_torch(a, dtype=None):
+    """numpy / jax array -> torch tensor with the same bits."""
+    a = np.ascontiguousarray(np.asarray(a))
+    if dtype is None:
+        return torch.from_numpy(a.copy())
+    return torch.from_numpy(a.view(_NP_INT[a.dtype.itemsize]).copy()).view(dtype)
+
+
+class _Store:
+    """One store state in both frameworks."""
+
+    def __init__(self, vecs, quant=JQuant.F8, valid=None):
+        n = vecs.shape[0]
+        self.j_codes, self.j_scale = j_quantize(jnp.asarray(vecs), quant)
+        deq = j_dequantize(self.j_codes, self.j_scale)
+        self.j_sqnorm = jnp.sum(deq * deq, axis=1)
+        self.valid = np.ones(n, bool) if valid is None else valid
+        self.t_codes = _to_torch(self.j_codes, _TORCH_DTYPE[quant])
+        self.t_scale = _to_torch(self.j_scale)
+        self.t_sqnorm = _to_torch(self.j_sqnorm)
+        self.compute = (jnp.float32, torch.float32) if quant == JQuant.NONE \
+            else (jnp.bfloat16, torch.bfloat16)
+
+    def jax(self, q, **kw):
+        negd, ids = jsp.fused_scan_neg_topk(
+            jnp.asarray(q), self.j_codes, self.j_scale, self.j_sqnorm,
+            jnp.asarray(self.valid), compute_dtype=self.compute[0], **kw)
+        return np.asarray(negd), np.asarray(ids)
+
+    def port(self, q, **kw):
+        negd, ids = fs.fused_scan_neg_topk(
+            torch.from_numpy(q), self.t_codes, self.t_scale, self.t_sqnorm,
+            torch.from_numpy(self.valid), compute_dtype=self.compute[1], **kw)
+        return negd.numpy(), ids.numpy()
+
+
+def _store(rng, n=N, quant=JQuant.F8):
+    vecs = rng.standard_normal((n, D)).astype(np.float32)
+    return vecs, _Store(vecs, quant)
+
+
+def _assert_same_topk(jax_out, port_out, bias_tol=None, ties=False):
+    """``ties``: the winners' keys are equal, and torch.topk may order
+    equal keys other than lax.top_k does: compare the id sets."""
+    (jn, ji), (tn, ti) = jax_out, port_out
+    if ties:
+        np.testing.assert_array_equal(np.sort(ti, axis=1), np.sort(ji, axis=1))
+    else:
+        np.testing.assert_array_equal(ti, ji)
+    finite = np.isfinite(jn)
+    np.testing.assert_array_equal(np.isfinite(tn), finite)
+    atol = 1e-4 if bias_tol is None else 1e-4 * bias_tol
+    np.testing.assert_allclose(tn[finite], jn[finite], rtol=0, atol=atol)
+
+
+def _bias(store, q, metric):
+    inp = fs.scan_inputs(torch.from_numpy(q), store.t_codes, store.t_scale,
+                         store.t_sqnorm, None, metric=metric)
+    return float(inp["bias"])
+
+
+# -- K1 keys ---------------------------------------------------------------
+
+def _two_rounding_keys(qi, codes, rowmul, rowadd, chunk):
+    """numpy model of K1 on int8 codes, product and sum rounded apart."""
+    nsl = chunk // 128
+    dots = (qi.astype(np.int64) @ codes.astype(np.int64).T).astype(np.float32)
+    val = (dots * rowmul).astype(np.float32) + rowadd
+    keys = val.view(np.int32).reshape(qi.shape[0], -1, nsl, 128) & np.int32(-nsl)
+    keys |= np.arange(nsl, dtype=np.int32)[None, None, :, None]
+    return keys.max(axis=2).reshape(qi.shape[0], -1)
+
+
+@pytest.mark.parametrize("quant", [JQuant.I8, JQuant.F8, JQuant.BF16, JQuant.NONE],
+                         ids=lambda q: q.name)
+def test_binmax_scan_ref_matches_jax_kernel(rng, quant):
+    vecs = rng.standard_normal((N, D)).astype(np.float32)
+    valid = np.ones(N, bool)
+    valid[::7] = False
+    st = _Store(vecs, quant, valid)
+    q = rng.standard_normal((40, D)).astype(np.float32)
+    inp = fs.scan_inputs(torch.from_numpy(q), st.t_codes, st.t_scale,
+                         st.t_sqnorm, torch.from_numpy(valid), metric=Metric.COSINE)
+    chunk = fs.chunk_for(N)
+    qp = inp["queries"].shape[0]
+    j_keys = np.asarray(jsp._binmax_scan(
+        jnp.asarray(inp["queries"].numpy()), st.j_codes,
+        jnp.asarray(inp["rowmul"].numpy()).reshape(1, N),
+        jnp.asarray(inp["rowadd"].numpy()).reshape(1, N),
+        compute_dtype=st.compute[0], chunk=chunk, qblock=qp))
+    t_keys = fs.binmax_scan(inp["queries"], st.t_codes, inp["rowmul"],
+                            inp["rowadd"], chunk=chunk,
+                            round_bf16=st.compute[1] == torch.bfloat16).numpy()
+    assert t_keys.shape == j_keys.shape == (qp, N // chunk * 128)
+    nsl = chunk // 128
+    if quant == JQuant.I8:
+        model = _two_rounding_keys(inp["queries"].numpy(), np.asarray(st.j_codes),
+                                   inp["rowmul"].numpy(), inp["rowadd"].numpy(),
+                                   chunk)
+        np.testing.assert_array_equal(t_keys, model)
+        step = np.abs((t_keys & -nsl).astype(np.int64)
+                      - (j_keys & -nsl).astype(np.int64))
+        assert step.max() <= nsl
+        assert (t_keys == j_keys).mean() > 0.999
+    else:
+        live = (j_keys > 0)  # valid rows; tombstone keys are negative
+        np.testing.assert_array_equal(t_keys > 0, live)
+        tv = (t_keys & -nsl).view(np.float32)[live]
+        jv = (j_keys & -nsl).view(np.float32)[live]
+        np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-4 * float(inp["bias"]))
+
+
+# -- fused top-k: every K1 case of tests/test_scan_pallas.py -----------------
+
+@pytest.mark.parametrize("metric", [Metric.COSINE, Metric.EUCLIDEAN],
+                         ids=lambda m: m.name)
+def test_fused_matches_jax_on_planted(rng, metric):
+    vecs = rng.standard_normal((N, D)).astype(np.float32)
+    q = rng.standard_normal((3, D)).astype(np.float32)
+    planted = [17, BIN_ROWS * 5 + 3, BIN_ROWS * 20, BIN_ROWS * 40 + 99,
+               BIN_ROWS * 60 + 1]
+    for j, slot in enumerate(planted):
+        vecs[slot] = q[0] * (1.0 + 0.01 * j)
+    st = _Store(vecs)
+    port = st.port(q, k=K, metric=metric)
+    _assert_same_topk(st.jax(q, k=K, metric=int(metric), final="exact"), port,
+                      _bias(st, q, metric) if metric == Metric.EUCLIDEAN else None)
+    if metric == Metric.COSINE:
+        assert set(port[1][0].tolist()) == set(planted)
+
+
+@pytest.mark.parametrize("metric", [Metric.COSINE, Metric.EUCLIDEAN],
+                         ids=lambda m: m.name)
+@pytest.mark.parametrize("quant", [JQuant.F8, JQuant.I8], ids=lambda q: q.name)
+def test_fused_matches_jax_on_random(rng, metric, quant):
+    """The random-overlap and int8-path cases: same ids and values as the
+    reference, and the port's own overlap with its exact plain scan."""
+    vecs, st = _store(rng, quant=quant)
+    q = rng.standard_normal((4, D)).astype(np.float32)
+    port = st.port(q, k=K, metric=metric)
+    _assert_same_topk(st.jax(q, k=K, metric=int(metric), final="exact"), port,
+                      _bias(st, q, metric) if metric == Metric.EUCLIDEAN else None)
+    _, exact_ids = scan_topk(torch.from_numpy(q), st.t_codes, st.t_scale,
+                             st.t_sqnorm, torch.from_numpy(st.valid), k=K,
+                             metric=metric)
+    for r in range(4):
+        overlap = set(port[1][r].tolist()) & set(exact_ids[r].tolist())
+        assert len(overlap) >= K - 2
+
+
+def test_fused_query_blocking_matches_jax(rng):
+    """Q = 520 > 512 pads to two query blocks."""
+    vecs, st = _store(rng, n=2048)
+    q = rng.standard_normal((520, D)).astype(np.float32)
+    _assert_same_topk(st.jax(q, k=1, final="exact"), st.port(q, k=1))
+
+
+def test_fused_respects_tombstones_like_jax(rng):
+    vecs, st = _store(rng)
+    st.valid = np.ones(N, bool)
+    st.valid[7] = False
+    q = vecs[7:8]
+    port = st.port(q, k=3)
+    _assert_same_topk(st.jax(q, k=3, final="exact"), port)
+    assert 7 not in port[1][0].tolist()
+
+
+def test_fused_zero_dot_winners_keep_ids():
+    """Every winner's raw score is exactly 0.0 and every other row scores
+    negative (tests/test_scan_pallas.py): ids must survive the packing."""
+    n, d = 2048, 128
+    q = np.zeros((1, d), np.float32)
+    q[0, 0] = 1.0
+    vecs = np.zeros((n, d), np.float32)
+    vecs[:, 0] = -0.5
+    vecs[:, 1] = 1.0
+    planted = [3, BIN_ROWS + 7, 5 * BIN_ROWS + 11, 900, 2047]
+    for slot in planted:
+        vecs[slot, 0] = 0.0
+    st = _Store(vecs, JQuant.NONE)
+    port = st.port(q, k=len(planted), final="exact")
+    _assert_same_topk(st.jax(q, k=len(planted), final="exact"), port, ties=True)
+    assert set(port[1][0].tolist()) == set(planted)
+    scores, _ = fs.fused_scan_topk(torch.from_numpy(q), st.t_codes, None,
+                                   st.t_sqnorm, None, k=len(planted))
+    np.testing.assert_allclose(scores.numpy()[0], 50.0, atol=1e-3)
+
+
+def test_fused_approx_equals_exact_like_jax(rng):
+    """final="approx" is an exact top-k in the port, as ApproxTopK is in
+    the reference on the CPU: identical to "exact", and to the JAX
+    package's approx, including negative scores and tombstones."""
+    n, d = 8192, 128
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    vecs[n // 2:] *= -1.0
+    valid = np.ones(n, bool)
+    valid[::7] = False
+    st = _Store(vecs, JQuant.NONE, valid)
+    q = rng.standard_normal((9, d)).astype(np.float32)
+    exact = st.port(q, k=32, final="exact")
+    approx = st.port(q, k=32, final="approx")
+    np.testing.assert_array_equal(exact[0], approx[0])
+    np.testing.assert_array_equal(exact[1], approx[1])
+    _assert_same_topk(st.jax(q, k=32, final="approx"), approx)
+
+
+def test_fused_all_invalid(rng):
+    vecs, st = _store(rng)
+    st.valid = np.zeros(N, bool)
+    negd, _ = st.port(vecs[:2], k=3)
+    assert np.isneginf(negd).all()
+    assert np.isneginf(st.jax(vecs[:2], k=3, final="exact")[0]).all()
+
+
+def test_supports_and_unported_modes(rng):
+    assert fs.supports(8192, 768, Metric.COSINE, torch.float8_e4m3fn)
+    assert fs.supports(8192, 768, Metric.COSINE, torch.int8)
+    assert not fs.supports(8192, 100, Metric.COSINE, torch.int8)
+    assert not fs.supports(1000, 768, Metric.COSINE, torch.int8)
+    assert not fs.supports(8192, 768, Metric.MANHATTAN, torch.int8)
+    assert not fs.supports(8192, 768, Metric.COSINE, torch.float16)
+    assert fs.chunk_for(8192) == 4096 and fs.chunk_for(2048) == 2048
+    vecs, st = _store(rng, n=2048)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        st.port(vecs[:1], k=1, final="slot2")
+
+
+def test_wrapper_counts_only_kernel_launches(rng):
+    """On CPU tensors the wrapper runs the plain version: no launch."""
+    vecs, st = _store(rng, n=2048, quant=JQuant.I8)
+    before = fs.binmax_scan.launches
+    st.port(vecs[:4], k=3)
+    assert fs.binmax_scan.launches == before
+
+
+# -- the CUDA kernel against its plain version (needs a card) ----------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 is a CUDA kernel with no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [JQuant.I8, JQuant.F8, JQuant.BF16, JQuant.NONE],
+                         ids=lambda q: q.name)
+def test_kernel_matches_plain_version(rng, cuda_device, quant):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vecs = rng.standard_normal((N, 256)).astype(np.float32)
+    valid = np.ones(N, bool)
+    valid[::5] = False
+    st = _Store(vecs, quant, valid)
+    q = torch.from_numpy(rng.standard_normal((520, 256)).astype(np.float32))
+    dev = cuda_device
+    inp = fs.scan_inputs(q.to(dev), st.t_codes.to(dev), st.t_scale.to(dev),
+                         st.t_sqnorm.to(dev), torch.from_numpy(valid).to(dev),
+                         metric=Metric.COSINE)
+    args = (inp["queries"], st.t_codes.to(dev), inp["rowmul"], inp["rowadd"])
+    kw = dict(chunk=fs.chunk_for(N), round_bf16=st.compute[1] == torch.bfloat16)
+    before = fs.binmax_scan.launches
+    got = fs.binmax_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert fs.binmax_scan.launches == before + 1
+    want = fs.binmax_scan_ref(*args, **kw)
+    if quant == JQuant.I8:
+        assert torch.equal(got, want)
+    else:
+        nsl = kw["chunk"] // 128
+        live = want > 0
+        assert torch.equal(got > 0, live)
+        diff = ((got & -nsl).view(torch.float32)
+                - (want & -nsl).view(torch.float32))[live].abs().max()
+        assert diff.item() <= 1e-4 * float(inp["bias"])
