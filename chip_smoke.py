@@ -4,15 +4,16 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from ``coltt_tpu_torch/csrc``, checks each
-against its plain PyTorch version on the card, then drives the edge
-server's main path over gRPC: a 1M x 768d int8 cosine collection (the
-configuration of ``bench.py``), ingested through BulkIndex and searched
-through SearchBatch / Search, flushed, released and loaded again.
+against its plain PyTorch version on the card, then drives two main
+paths on the same 1M x 768d rows: the edge server over gRPC (an int8
+cosine collection ingested through BulkIndex and searched through
+SearchBatch / Search, flushed, released and loaded again), and the
+flagship flat index of ``python -m coltt_tpu_torch.bench``.
 
 Phases (each exits non-zero on failure):
 
 0. card line (``nvidia-smi`` name and power limit) and versions;
-1. kernel build, with its time;
+1. kernel build (K1 and K2 share one source), with its time;
 2. K1 against its plain version: small shapes (planted rows, tombstones,
    zero-dot winners, all-invalid, Q=520) and the serving shape (Q in
    {8, 2048}, N=1,048,576, D=768) for int8, f8, bf16 and f32 codes.
@@ -20,11 +21,27 @@ Phases (each exits non-zero on failure):
    (the f32 sum over D runs in another order), and the top-40 ids
    selected from them must overlap >= 39/40 per query. Median times of
    kernel and plain version by CUDA events, after a warm-up;
+2b. K2 against its plain version: small shapes (planted rows, dead bins,
+   D=2048 at the packing's overflow edge, Q=520) and the serving shape
+   (Q in {8, 2048}, N=1,003,520 -- 1M rows padded to 4096 -- D=768). Keys
+   must be bit-identical; median times as in phase 2;
 3. the edge server end to end: recall@10 of the high_resource (K1) and
    the plain exact SearchBatch against f32 ground truth computed on the
    card with TF32 off; K1's must be no more than 0.01 below the plain
    path's. K1's launch count must rise during the high_resource search.
+4. the flat index at 1M x 768d on phase 3's rows, queries and ground
+   truth: the I8 + bf16-rerank index searched with K1 and
+   ``final="approx"`` (the bench's configuration) and ``"slot2"``, and
+   the unit-norm int8 index searched through K2 (``auto``, i.e. slot2).
+   Each recall@10 must be >= 0.95 and >= phase 3's K1 recall - 0.01;
+   K1's count must rise during the I8 searches and K2's during the
+   unit-i8 search, and a search of each path run under
+   ``torch.cuda.set_sync_debug_mode("error")`` must not wait for the
+   device. Then a short run of the bench (depth 16, fewer rounds) on each
+   index prints the bench's JSON line.
 
+Each path's launch counts are set to 0 just before it is driven and
+read just after.
 Every number printed is this run's, on the card named in phase 0. The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA it exits 1 and prints no
@@ -54,6 +71,8 @@ QUERIES = 2048
 TAGS = 8
 REPS = 5
 SERVING_N = 1 << 20  # the store's capacity at 1M rows
+INDEX_N = 1_003_520  # the flat index's rows at 1M: padded to 4096
+OVERSAMPLE = 4
 
 
 class SmokeFailure(Exception):
@@ -95,12 +114,10 @@ def timed_pair(plain, kernel, reps=REPS):
 
 def phase_card():
     import torch
-
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip())
+    from coltt_tpu_torch.bench import smi_line
     from coltt_tpu_torch.ops.native import nvcc_path
+
+    log(smi_line())
 
     nvcc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -112,8 +129,8 @@ def phase_build():
     from coltt_tpu_torch.ops import fused_scan as fs
 
     t0 = time.perf_counter()
-    lib = fs.load_kernels()
-    log(f"[build] binmax_scan: nvcc {lib.build_seconds:.2f} s, load "
+    lib = fs.load_kernels()  # binds K1 and K2; a missing symbol raises
+    log(f"[build] binmax_scan (K1 + K2): nvcc {lib.build_seconds:.2f} s, load "
         f"{time.perf_counter() - t0:.2f} s")
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -266,6 +283,99 @@ def phase_kernels():
     return record
 
 
+# -- phase 2b ------------------------------------------------------------------
+
+def _unit_index(x):
+    import torch
+    from coltt_tpu_torch.ops.quant import Quantization
+    from coltt_tpu_torch.parallel.dist_search import DistributedFlatIndex
+
+    return DistributedFlatIndex(x.device, x, quantization=Quantization.I8,
+                                rerank_dtype=torch.bfloat16, unit_i8=True)
+
+
+def phase_k2():
+    """K2 vs its plain version; returns the serving-shape Q=2048 record."""
+    import torch
+    from coltt_tpu_torch.ops import fused_scan as fs
+    from coltt_tpu_torch.ops.distance import quantize_queries_i8
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+
+    def k2_pair(qi, codes, chunk, what):
+        got = fs.binmax_scan_i8(qi, codes, chunk=chunk)
+        torch.cuda.synchronize()
+        want = fs.binmax_scan_i8_ref(qi, codes, chunk=chunk)
+        err = (got.long() - want.long()).abs().max().item()
+        check(torch.equal(got, want), f"{what}: K2 keys not bit-identical "
+              f"(max diff {err})")
+        return got, err
+
+    # small shapes: planted rows, dead bins, Q=520 (ragged for the kernel,
+    # padded to 544 by the wrapper)
+    n, d = 8192, 256
+    x = torch.randn(n, d, device=dev, generator=gen)
+    q = torch.randn(520, d, device=dev, generator=gen)
+    planted = [5, 32 * 9 + 2, 32 * 33, 32 * 71 + 8, 4096 + 32 * 3 + 1]
+    for j, slot in enumerate(planted):
+        x[slot] = q[0] * (1.0 + 0.01 * j)
+    idx = _unit_index(x)
+    qi, _ = quantize_queries_i8(q)
+    for chunk in (2048, 4096):
+        k2_pair(qi.contiguous(), idx.codes, chunk, f"small chunk={chunk} Q=520")
+    _, ids = fs.fused_unit_i8_neg_topk(q[:3], idx.codes, idx.gscale,
+                                       idx.bin_live, k=len(planted))
+    check(set(ids[0].tolist()) == set(planted), "K2: planted rows lost")
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    valid[4096:] = False
+    live = fs.unit_i8_bin_live(valid, fs.chunk_for(n))
+    negd, ids = fs.fused_unit_i8_neg_topk(x[5000:5001], idx.codes, idx.gscale,
+                                          live, k=8)
+    check(bool((ids < 4096).all()) and bool(torch.isfinite(negd).all()),
+          "K2: a dead bin was returned")
+    negd, _ = fs.fused_unit_i8_neg_topk(q[:2], idx.codes, idx.gscale,
+                                        torch.zeros_like(live), k=3)
+    check(bool(torch.isneginf(negd).all()), "K2: all-dead index scored")
+    _, i_card = fs.fused_unit_i8_neg_topk(q, idx.codes, idx.gscale,
+                                          idx.bin_live, k=1, final="exact")
+    _, i_cpu = fs.fused_unit_i8_neg_topk(q.cpu(), idx.codes.cpu(),
+                                         idx.gscale.cpu(), idx.bin_live.cpu(),
+                                         k=1, final="exact")
+    match = (i_card.cpu() == i_cpu).float().mean().item()
+    check(match > 0.99, f"K2 Q=520 top-1 vs the plain version on the CPU: {match}")
+    # the overflow edge: +-127 rows against a +-127 query at D=2048
+    d = 2048
+    signs = torch.where(torch.randn(4096, d, device=dev, generator=gen) >= 0,
+                        127, -127).to(torch.int8)
+    qs = signs[:40].clone()
+    signs[128 + 1] = -qs[0]
+    got, _ = k2_pair(qs, signs, 4096, "D=2048 +-127")
+    check(got[0, 0].item() == (127 * 127 * 2048) << 5, "K2: overflow-edge key")
+    log("[k2] small shapes: planted, dead bins, all-dead, Q=520 top-1, "
+        "D=2048 overflow edge ok")
+
+    # serving shape
+    codes = torch.randint(-127, 128, (INDEX_N, DIM), device=dev,
+                          dtype=torch.int8, generator=gen)
+    record = None
+    for nq in (8, QUERIES):
+        qi = torch.randint(-127, 128, (nq, DIM), device=dev, dtype=torch.int8,
+                           generator=gen)
+        what = f"serving int8 Q={nq} N={INDEX_N}"
+        _, err = k2_pair(qi, codes, 4096, what)
+        ms, plain_ms = timed_pair(lambda: fs.binmax_scan_i8_ref(qi, codes, chunk=4096),
+                                  lambda: fs.binmax_scan_i8(qi, codes, chunk=4096))
+        log(f"[k2] {what}: K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"keys bit-identical")
+        if nq == QUERIES:
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    del codes
+    torch.cuda.empty_cache()
+    return record
+
+
 # -- phase 3 -------------------------------------------------------------------
 
 def _ground_truth(x_host, q_host, dev):
@@ -297,9 +407,22 @@ def _recall(ids_flat, counts, truth):
     return compute_recall(got, truth)
 
 
-def phase_server(tmp, device="cuda"):
-    import grpc
+def make_data(device="cuda"):
+    """Phase 3's and 4's rows and queries (numpy, from the seed) and the
+    queries' exact f32 cosine top-k."""
     import torch
+
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    x = rng.standard_normal((N_ROWS, DIM), dtype=np.float32)
+    queries = rng.standard_normal((QUERIES, DIM), dtype=np.float32)
+    log(f"[data] {N_ROWS} x {DIM} f32 from seed {SEED}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    return x, queries, _ground_truth(x, queries, torch.device(device))
+
+
+def phase_server(tmp, data, device="cuda"):
+    import grpc
     from coltt_tpu_torch.api.client import EdgeClient
     from coltt_tpu_torch.api.server import build_servicer, create_server
     from coltt_tpu_torch.index.filter import Filter, Op
@@ -308,14 +431,7 @@ def phase_server(tmp, device="cuda"):
     from coltt_tpu_torch.ops.quant import Quantization
     from coltt_tpu_torch.utils.config import Config
 
-    rng = np.random.default_rng(SEED)
-    t0 = time.perf_counter()
-    x = rng.standard_normal((N_ROWS, DIM), dtype=np.float32)
-    queries = rng.standard_normal((QUERIES, DIM), dtype=np.float32)
-    log(f"[server] data {N_ROWS} x {DIM} f32 from seed {SEED}: "
-        f"{time.perf_counter() - t0:.1f} s")
-    truth = _ground_truth(x, queries, torch.device(device))
-
+    x, queries, truth = data
     cfg = Config()
     cfg.root_layer.bind_address = "127.0.0.1:0"
     cfg.root_layer.prof_address = "127.0.0.1:0"
@@ -326,7 +442,7 @@ def phase_server(tmp, device="cuda"):
     cfg.storage.object_store_root = os.path.join(tmp, "objects")
     cfg.serving.device = device
 
-    fs.binmax_scan.launches = 0  # the main path's count starts here
+    fs.binmax_scan.launches = fs.binmax_scan_i8.launches = 0  # this path's counts
     server = create_server(build_servicer("edge", cfg), cfg)
     server.start()
     channel = grpc.insecure_channel(
@@ -412,13 +528,91 @@ def phase_server(tmp, device="cuda"):
         log(f"[server] Flush + Release + Load: {time.perf_counter() - t0:.1f} s")
         counts, _, ids_again, _ = search_batch(True)
         check(ids_again == ids_k1, "SearchBatch after reload returned other ids")
-        launches = fs.binmax_scan.launches
-        log(f"[server] K1 launches during the server run: {launches}")
+        launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
+        log(f"[server] launches during the server run: {launches}")
+        check(launches["K2"] == 0, "the edge server launched K2")
         return {"launches": launches, "recall_k1": recall_k1,
                 "recall_plain": recall_plain}
     finally:
         channel.close()
         server.stop(None)
+
+
+# -- phase 4 -------------------------------------------------------------------
+
+def phase_flat_index(data, recall_server, device="cuda"):
+    """The flat index at 1M x 768d: the I8 + bf16 index through K1, the
+    unit-i8 index through K2, then a short bench run on each."""
+    import torch
+    from coltt_tpu_torch import bench
+    from coltt_tpu_torch.ops import fused_scan as fs
+    from coltt_tpu_torch.ops.quant import Quantization
+    from coltt_tpu_torch.ops.topk import compute_recall
+    from coltt_tpu_torch.parallel.dist_search import DistributedFlatIndex
+
+    x, queries, truth = data
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    xd = torch.from_numpy(x).to(dev)
+    i8 = bench.build_index(xd, dev, unit_i8=False)
+    unit = bench.build_index(xd, dev, unit_i8=True)
+    gt = DistributedFlatIndex(dev, xd, quantization=Quantization.NONE)
+    del xd
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"[index] upload + I8/bf16, unit-i8 and f32 indexes: "
+        f"{time.perf_counter() - t0:.2f} s")
+    check(i8.codes.shape[0] == unit.codes.shape[0] == -(-N_ROWS // 4096) * 4096,
+          f"index rows {i8.codes.shape[0]}")
+
+    fs.binmax_scan.launches = fs.binmax_scan_i8.launches = 0  # this path's counts
+    # nothing on the queued path may wait for the device
+    q_dev = torch.from_numpy(queries).to(dev)
+    for idx in (i8, unit):
+        idx.search_tensors(q_dev, K, oversample=OVERSAMPLE, fused=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            idx.search_tensors(q_dev, K, oversample=OVERSAMPLE, fused=True)
+        finally:
+            if dev.type == "cuda":
+                torch.cuda.set_sync_debug_mode("default")
+    log("[index] queued searches (K1 and K2 paths) never wait for the device")
+    recalls = {}
+    for name, idx, kw, kernel in (
+            ("I8 K1 approx", i8, dict(fused=True, final="approx"), "K1"),
+            ("I8 K1 slot2", i8, dict(fused=True, final="slot2"), "K1"),
+            ("unit-i8 K2 auto", unit, {}, "K2")):
+        before = (fs.binmax_scan.launches, fs.binmax_scan_i8.launches)
+        t0 = time.perf_counter()
+        scores, ids = idx.search(queries, K, oversample=OVERSAMPLE, **kw)
+        dt = (time.perf_counter() - t0) * 1e3
+        rose = (fs.binmax_scan.launches > before[0],
+                fs.binmax_scan_i8.launches > before[1])
+        check(rose == ((True, False) if kernel == "K1" else (False, True)),
+              f"{name}: launches K1 {before[0]}->{fs.binmax_scan.launches}, "
+              f"K2 {before[1]}->{fs.binmax_scan_i8.launches}")
+        check(scores.shape == (QUERIES, K) and np.isfinite(scores).all(),
+              f"{name}: non-finite or misshapen scores")
+        check(((ids >= 0) & (ids < N_ROWS)).all(), f"{name}: padding row returned")
+        check((scores[:, :-1] >= scores[:, 1:] - 1e-4).all(),
+              f"{name}: scores not descending")
+        recalls[name] = compute_recall(ids, truth)
+        log(f"[index] {name}: recall@{K} {recalls[name]:.4f} ({QUERIES} "
+            f"queries, first search {dt:.1f} ms)")
+        check(recalls[name] >= 0.95 and recalls[name] >= recall_server - 0.01,
+              f"{name}: recall {recalls[name]} below 0.95 or phase 3's "
+              f"{recall_server} - 0.01")
+
+    for idx in (i8, unit):
+        record = bench.run(idx, gt, np.random.default_rng(SEED + 1),
+                           warm=1, rounds=2)
+        record["device"] = bench.card()
+        log(json.dumps(record))
+    launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
+    log(f"[index] launches during the flat-index run: {launches}")
+    return {"launches": launches, "recalls": recalls}
 
 
 def main() -> int:
@@ -445,20 +639,35 @@ def main() -> int:
         phase_card()
         phase_build()
         record = phase_kernels()
-        run = phase_server(tmp)
+        k2_record = phase_k2()
+        data = make_data()
+        run = phase_server(tmp, data)
+        index_run = phase_flat_index(data, run["recall_k1"])
     except Exception:  # noqa: BLE001 — any failure fails the smoke
         traceback.print_exc()
         return 1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # launches: the flat-index path (phase 4); each path's own count beside
     kernels = [{
         "name": "K1 binmax_scan",
         "route": "cuda",
         "source": "coltt_tpu_torch/csrc/binmax_scan.cu",
         "replaces": "coltt_tpu/ops/scan_pallas.py:126",
-        "launches": run["launches"],
+        "launches": index_run["launches"]["K1"],
+        "launches_by_path": {"edge_server": run["launches"]["K1"],
+                             "flat_index": index_run["launches"]["K1"]},
         **record,
+    }, {
+        "name": "K2 binmax_scan_i8",
+        "route": "cuda",
+        "source": "coltt_tpu_torch/csrc/binmax_scan.cu",
+        "replaces": "coltt_tpu/ops/scan_pallas.py:559",
+        "launches": index_run["launches"]["K2"],
+        "launches_by_path": {"edge_server": run["launches"]["K2"],
+                             "flat_index": index_run["launches"]["K2"]},
+        **k2_record,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
-// K1: fused scan with one packed survivor per bin, for Hopper (sm_90a).
+// K1 and K2: fused scans with one packed survivor per bin, for Hopper
+// (sm_90a). Both share one tile loop and differ only in the epilogue that
+// turns a dot into a key.
 //
-// Replaces coltt_tpu/ops/scan_pallas.py::_kernel (launched by
+// K1 replaces coltt_tpu/ops/scan_pallas.py::_kernel (launched by
 // _binmax_scan). For every query q and every bin b of a row chunk
 // (chunk = nsl slices of 128 rows; bin b holds rows s*128 + b, s < nsl):
 //
@@ -15,6 +17,15 @@
 // rowadd carries the tombstone penalty and a positivity bias, so the f32
 // bits of every valid val order like the value; see fused_scan.py.
 //
+// K2 replaces coltt_tpu/ops/scan_pallas.py::_int_kernel (launched by
+// _binmax_scan_i8): unit-norm rows under one global int8 scale, so the raw
+// s8 x s8 -> s32 dot is the ranking key and the epilogue is all-integer:
+//
+//   key  = (dot << log2(nsl)) | s        (shifted as uint32: no UB on a
+//                                         negative dot; |dot| <= 127^2 * D
+//                                         and D <= 2048 keep it under 2^30)
+//   out[q, chunk*128 + b] = max over s of key
+//
 // Design: a block owns 64 queries x the 128 bins of one chunk and walks
 // the chunk's nsl slices; each slice is a 64 x 128 product over D, staged
 // through shared memory 32 words of D at a time (128 int8 values, or 32
@@ -23,7 +34,8 @@
 // registers, so only [Q, N/32] keys reach device memory, not [Q, N]
 // scores. Query tiles are the grid's fastest axis: the blocks that share
 // a chunk run together and read its codes from L2, so the codes come from
-// device memory about once per call.
+// device memory about once per call. What bounds both kernels at serving
+// shapes is the product on CUDA cores, not bytes (see fused_scan.py).
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -98,6 +110,38 @@ struct Unpack<float> {
   }
 };
 
+// K1's epilogue: the per-row affine, rounded twice, then the bit pack.
+struct AffineKey {
+  const float* __restrict__ rowmul;
+  const float* __restrict__ rowadd;
+  int32_t mask;  // -nsl: clears the low log2(nsl) bits
+  struct Row {
+    float m, c;
+  };
+  __device__ __forceinline__ Row row(int r) const { return {rowmul[r], rowadd[r]}; }
+  template <typename Acc>
+  __device__ __forceinline__ int32_t key(Acc acc, Row rw, int s) const {
+    float dot;
+    if constexpr (std::is_same<Acc, int>::value) {
+      dot = __int2float_rn(acc);  // exact: |dot| < 2^24 for D <= 1040
+    } else {
+      dot = acc;
+    }
+    const float val = __fadd_rn(__fmul_rn(dot, rw.m), rw.c);
+    return (__float_as_int(val) & mask) | s;
+  }
+};
+
+// K2's epilogue: the dot shifted over the slice bits, as uint32.
+struct ShiftKey {
+  int sh;  // log2(nsl)
+  struct Row {};
+  __device__ __forceinline__ Row row(int) const { return {}; }
+  __device__ __forceinline__ int32_t key(int acc, Row, int s) const {
+    return static_cast<int32_t>((static_cast<uint32_t>(acc) << sh) | static_cast<uint32_t>(s));
+  }
+};
+
 // Elements of D one k-step covers: 128 for int8, 32 for float codes.
 template <typename T>
 __host__ __device__ constexpr int step_elems() {
@@ -130,12 +174,11 @@ __device__ __forceinline__ void load_tile(uint32_t* s, const T* __restrict__ g, 
   }
 }
 
-template <typename C, typename Q>
+template <typename C, typename Q, typename Epilogue>
 __global__ void __launch_bounds__(kThreads)
 binmax_scan_kernel(const Q* __restrict__ queries, const C* __restrict__ codes,
-                   const float* __restrict__ rowmul, const float* __restrict__ rowadd,
-                   int32_t* __restrict__ out, int qp, int n, int d, int nsl,
-                   bool round_bf16) {
+                   const Epilogue epilogue, int32_t* __restrict__ out, int qp, int n,
+                   int d, int nsl, bool round_bf16) {
   constexpr bool kInt = std::is_same<C, int8_t>::value;
   using Acc = typename std::conditional<kInt, int, float>::type;
   constexpr int kStep = step_elems<C>();
@@ -150,7 +193,6 @@ binmax_scan_kernel(const Q* __restrict__ queries, const C* __restrict__ codes,
   const int chunk = blockIdx.y;
   const int chunk_rows = nsl * kLanes;
   const int nbins = (n / chunk_rows) * kLanes;
-  const int32_t mask = -nsl;  // clears the low log2(nsl) bits
 
   int32_t best[kTM][kTN];
   for (int s = 0; s < nsl; ++s) {
@@ -188,19 +230,10 @@ binmax_scan_kernel(const Q* __restrict__ queries, const C* __restrict__ codes,
 
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
-      const int row = row0 + tx + 16 * j;
-      const float m = rowmul[row];
-      const float c = rowadd[row];
+      const auto rw = epilogue.row(row0 + tx + 16 * j);
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
-        float dot;
-        if constexpr (kInt) {
-          dot = __int2float_rn(acc[i][j]);  // exact: |dot| < 2^24 for D <= 1040
-        } else {
-          dot = acc[i][j];
-        }
-        const float val = __fadd_rn(__fmul_rn(dot, m), c);
-        const int32_t key = (__float_as_int(val) & mask) | s;
+        const int32_t key = epilogue.key(acc[i][j], rw, s);
         best[i][j] = (s == 0) ? key : max(best[i][j], key);
       }
     }
@@ -217,14 +250,13 @@ binmax_scan_kernel(const Q* __restrict__ queries, const C* __restrict__ codes,
   }
 }
 
-template <typename C, typename Q>
-int launch(const void* q, const void* c, const float* rowmul, const float* rowadd,
-           int32_t* out, int qp, int n, int d, int nsl, int round_bf16,
-           cudaStream_t stream) {
+template <typename C, typename Q, typename Epilogue>
+int launch(const void* q, const void* c, const Epilogue& epilogue, int32_t* out, int qp,
+           int n, int d, int nsl, int round_bf16, cudaStream_t stream) {
   const dim3 grid((qp + kQTile - 1) / kQTile, n / (nsl * kLanes));
-  binmax_scan_kernel<C, Q><<<grid, kThreads, 0, stream>>>(
-      static_cast<const Q*>(q), static_cast<const C*>(c), rowmul, rowadd, out, qp, n, d,
-      nsl, round_bf16 != 0);
+  binmax_scan_kernel<C, Q, Epilogue><<<grid, kThreads, 0, stream>>>(
+      static_cast<const Q*>(q), static_cast<const C*>(c), epilogue, out, qp, n, d, nsl,
+      round_bf16 != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -240,26 +272,38 @@ extern "C" int coltt_binmax_scan(int code_dtype, const void* queries, const void
                                  void* stream) {
   if (qp <= 0 || n <= 0 || nsl <= 0 || n % (nsl * kLanes) != 0) return kBadArgument;
   auto s = static_cast<cudaStream_t>(stream);
+  const AffineKey e{rowmul, rowadd, -nsl};
   switch (code_dtype) {
     case kCodeInt8:
       if (d % step_elems<int8_t>() != 0) return kBadArgument;
-      return launch<int8_t, int8_t>(queries, codes, rowmul, rowadd, out, qp, n, d, nsl,
-                                    round_bf16, s);
+      return launch<int8_t, int8_t>(queries, codes, e, out, qp, n, d, nsl, round_bf16, s);
     case kCodeFp8:
       if (d % step_elems<__nv_fp8_e4m3>() != 0) return kBadArgument;
-      return launch<__nv_fp8_e4m3, float>(queries, codes, rowmul, rowadd, out, qp, n, d,
-                                          nsl, round_bf16, s);
+      return launch<__nv_fp8_e4m3, float>(queries, codes, e, out, qp, n, d, nsl, round_bf16,
+                                          s);
     case kCodeBf16:
       if (d % step_elems<__nv_bfloat16>() != 0) return kBadArgument;
-      return launch<__nv_bfloat16, float>(queries, codes, rowmul, rowadd, out, qp, n, d,
-                                          nsl, round_bf16, s);
+      return launch<__nv_bfloat16, float>(queries, codes, e, out, qp, n, d, nsl, round_bf16,
+                                          s);
     case kCodeFp32:
       if (d % step_elems<float>() != 0) return kBadArgument;
-      return launch<float, float>(queries, codes, rowmul, rowadd, out, qp, n, d, nsl,
-                                  round_bf16, s);
+      return launch<float, float>(queries, codes, e, out, qp, n, d, nsl, round_bf16, s);
     default:
       return kBadArgument;
   }
+}
+
+// K2. d <= 2048 keeps (dot << log2(nsl)) + 2^30 inside int32 (fused_scan.py).
+extern "C" int coltt_binmax_scan_i8(const void* queries, const void* codes, int32_t* out,
+                                    int qp, int n, int d, int nsl, void* stream) {
+  if (qp <= 0 || n <= 0 || nsl <= 0 || (nsl & (nsl - 1)) != 0 || n % (nsl * kLanes) != 0 ||
+      d <= 0 || d > 2048 || d % step_elems<int8_t>() != 0) {
+    return kBadArgument;
+  }
+  int sh = 0;
+  while ((1 << sh) < nsl) ++sh;
+  return launch<int8_t, int8_t>(queries, codes, ShiftKey{sh}, out, qp, n, d, nsl, 0,
+                                static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* coltt_error_string(int code) {

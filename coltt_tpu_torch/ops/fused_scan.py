@@ -1,6 +1,7 @@
 """Fused scan + top-k: the high-throughput FLAT search path.
 
-Port of ``coltt_tpu/ops/scan_pallas.py`` (K1 and its wrapper). The plain
+Port of ``coltt_tpu/ops/scan_pallas.py``: K1 and its wrapper, the slot2
+selection, and K2 with the unit-norm int8 path below. The plain
 scan (:mod:`.topk`) materializes the ``[Q, N]`` f32 score matrix in device
 memory: 8 GB at Q=2048, N=1M, ten times the int8 corpus. K1
 (:func:`binmax_scan`, a CUDA kernel in ``csrc/binmax_scan.cu``) keeps each
@@ -31,8 +32,19 @@ Selection: ``final="exact"``, and ``"approx"`` / ``"auto"``, are all an
 exact ``torch.topk`` over the survivors. The JAX package's ``approx``
 is ``lax.approx_max_k``, a TPU operation that is an exact top-k on the
 CPU, where the reference is checked; so this is what the reference
-computes there. ``slot2`` and the measurement-only variants are not
-ported yet (ROADMAP Queue 1, rerank + slot2 + DistributedFlatIndex).
+computes there. ``final="slot2"`` (:func:`_slot2_select`) keeps the best
+two members of each strided slot of S bins and runs the exact top-k over
+``[Q, 2*nb/S]`` only. The reference's measurement-only variants
+(``slot2t``, ``slot2c``, ``slot2a``, ``approx2``) are not ported.
+
+Unit-norm int8 path (:func:`fused_unit_i8_neg_topk`): rows normalized and
+quantized under ONE global scale, so the raw s8 x s8 -> s32 dot ranks
+rows within a query and across stores. K2 (:func:`binmax_scan_i8`, in the
+same CUDA source as K1) packs ``(dot << log2(nsl)) | slice`` and takes
+an integer max; the wrapper masks dead bins, shifts every key by +2^30
+into the non-negative range and selects on those int32 keys directly
+(non-negative ints order like their f32 bits, which the reference
+selects on). Callers rerank the shortlist (``ops/topk.rerank_neg_topk``).
 """
 
 from __future__ import annotations
@@ -64,7 +76,10 @@ _CODE_DTYPES = {
 # bytes of [Q, rows] f32 transients the plain version keeps alive per step
 _REF_STEP_BYTES = 1 << 28
 
-_KERNELS = KernelLibrary("binmax_scan")
+_DEAD = -(1 << 30)  # K2 key of a bin with no valid row: below every real key
+_UNIT_MAX_DIM = 2048  # |dot| <= 127^2 * D; << 5 must stay under 2^30
+
+_KERNELS = KernelLibrary("binmax_scan")  # K1 and K2
 _LAUNCHES_MU = threading.Lock()  # gRPC worker threads launch concurrently
 
 
@@ -95,14 +110,17 @@ def _pick_qblock(q: int, align: int) -> tuple[int, int]:
 
 
 def load_kernels() -> KernelLibrary:
-    """Build (first use only) and load K1's library; returns its handle,
-    whose ``build_seconds`` / ``build_log`` describe the build."""
+    """Build (first use only) and load the library of K1 and K2; returns
+    its handle, whose ``build_seconds`` / ``build_log`` describe the build."""
     lib = _KERNELS.load()
     fn = lib.coltt_binmax_scan
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        k2 = lib.coltt_binmax_scan_i8
+        k2.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        k2.restype = ctypes.c_int
         lib.coltt_error_string.argtypes = [ctypes.c_int]
         lib.coltt_error_string.restype = ctypes.c_char_p
     return _KERNELS
@@ -226,10 +244,76 @@ def binmax_scan(queries, codes, rowmul, rowadd, *, chunk: int,
 binmax_scan.launches = 0
 
 
+def _slot_plan(nb: int):
+    """``(members S, width)`` for the slot2 selection over ``nb`` bins:
+    ``width`` divides ``nb``; a lane-aligned width (a multiple of 128) is
+    preferred, then the largest S <= 48 (the two-survivor loss grows
+    ~(r*S/nb)^2/2 at shortlist rank r). None when no split exists."""
+    aligned = [s for s in range(8, 49) if nb % s == 0 and (nb // s) % 128 == 0]
+    if aligned:
+        s = max(aligned)
+        return s, nb // s
+    loose = [s for s in range(8, 49) if nb % s == 0]
+    if loose:
+        s = max(loose)
+        return s, nb // s
+    return None
+
+
+def _topk_keys(keys, kk: int, float_view: bool):
+    """Exact top-k of packed int32 keys: ``(sel int32, pos int64)``.
+    ``float_view`` ranks them as their f32 bit patterns (K1's keys, whose
+    tombstones are negative floats), else as ints (K2's non-negative keys,
+    which order the same either way); no arithmetic touches a view."""
+    if float_view:
+        fsel, pos = torch.topk(keys.view(torch.float32), kk, dim=1, sorted=True)
+        return fsel.view(torch.int32), pos
+    return torch.topk(keys, kk, dim=1, sorted=True)
+
+
+def _slot2_select(keys, kk: int, low_bits: int, float_view: bool = True):
+    """Two-survivors-per-strided-slot selection over packed int32 keys
+    (the reference's ``style="mask"``).
+
+    Slot ``c`` holds the S strided columns ``{c, c+width, ...}`` of the
+    ``[Q, nb]`` keys and keeps its best two members, so a bin is lost only
+    when two better bins share its slot. The member index replaces the
+    ``mbits`` key bits just above the ``low_bits`` already in use, which
+    makes every key of a slot distinct: ``m1`` is the slot's max, ``m2``
+    the max with ``m1`` masked out. One exact top-k over the ``[Q, 2*width]``
+    survivors finishes. Returns ``(sel, pos, drop_bits)``: the selected
+    keys, their original bin columns, and how many low key bits are now
+    index payload. Falls back to an exact top-k over all bins when there
+    is no plan or ``kk`` exceeds the survivors.
+    """
+    qp, nb = keys.shape
+    plan = _slot_plan(nb)
+    if plan is None or 2 * (nb // plan[0]) < kk:
+        sel, pos = _topk_keys(keys, kk, float_view)
+        return sel, pos, low_bits
+    s_members, width = plan
+    mbits = (s_members - 1).bit_length()
+    clear = ~(((1 << mbits) - 1) << low_bits)
+    imin = torch.iinfo(torch.int32).min
+    km = keys.reshape(qp, s_members, width)
+    tag = (torch.arange(s_members, dtype=torch.int32, device=keys.device)
+           << low_bits).view(1, s_members, 1)
+    tagged = (km & clear) | tag
+    m1 = tagged.amax(dim=1)
+    m2 = torch.where(tagged == m1.unsqueeze(1), imin, tagged).amax(dim=1)
+    cand = torch.cat([m1, m2], dim=1)                      # [qp, 2*width]
+    sel, cpos = _topk_keys(cand, kk, float_view)
+    member = ((sel >> low_bits) & ((1 << mbits) - 1)).to(cpos.dtype)
+    pos = member * width + cpos % width                    # original bin column
+    return sel, pos, low_bits + mbits
+
+
 def scan_inputs(queries, codes, scale, sqnorm, valid, *, metric):
     """The operands K1 gets from the store's state and a query batch.
 
-    Returns a dict: ``queries`` (the padded kernel queries: int8 for int8
+    Nothing here waits for the device (no host-to-device copy), so
+    batches queue back to back. Returns a dict: ``queries`` (the padded
+    kernel queries: int8 for int8
     codes, else f32), ``rowmul`` / ``rowadd`` ([N] f32 per-row factors
     with the tombstone penalty and the bias folded in), ``bias``, and the
     per-query affine ``qmul`` / ``qadd`` that maps un-biased winners back
@@ -273,7 +357,7 @@ def scan_inputs(queries, codes, scale, sqnorm, valid, *, metric):
         qadd = torch.full((), -1.0, dtype=f32, device=dev)
         # |val| <= ||q_kern|| by Cauchy-Schwarz: static for int8 queries
         if int8:
-            bound = torch.tensor(127.0 * math.sqrt(d), dtype=f32, device=dev)
+            bound = torch.full((), 127.0 * math.sqrt(d), dtype=f32, device=dev)
         else:
             bound = torch.sqrt(qsq.amax())
     elif metric == Metric.EUCLIDEAN:
@@ -282,7 +366,7 @@ def scan_inputs(queries, codes, scale, sqnorm, valid, *, metric):
         qmul = torch.ones((qp, 1), dtype=f32, device=dev)
         qadd = -qsq
         maxsq = sqnorm.amax()
-        qn_bound = (torch.tensor(127.0 * math.sqrt(d), dtype=f32, device=dev)
+        qn_bound = (torch.full((), 127.0 * math.sqrt(d), dtype=f32, device=dev)
                     * gscale if int8 else torch.sqrt(qsq.amax()))
         bound = 2.0 * qn_bound * torch.sqrt(maxsq) + maxsq
     else:
@@ -319,14 +403,11 @@ def fused_scan_neg_topk(
     :func:`supports` holds. Float codes are multiplied as ``compute_dtype``
     operands (bf16, or f32 for unquantized stores); int8 codes take the
     s8 x s8 product with queries quantized on the fly. ``final``: "exact",
-    "approx" or "auto", all an exact top-k over the survivors (module
-    docstring).
+    "approx" or "auto", all an exact top-k over the survivors, or "slot2"
+    (module docstring).
     """
     metric = Metric.parse(metric)
-    if final not in ("auto", "exact", "approx"):
-        raise NotImplementedError(
-            f"final={final!r} is not ported yet (ROADMAP Queue 1, rerank + "
-            f"slot2 + DistributedFlatIndex)")
+    _check_final(final)
     if codes.dtype != torch.int8 and compute_dtype not in (torch.bfloat16,
                                                            torch.float32):
         raise ValueError(f"fused scan computes in bf16 or f32, not {compute_dtype}")
@@ -340,21 +421,32 @@ def fused_scan_neg_topk(
         inp["queries"], codes, inp["rowmul"], inp["rowadd"], chunk=chunk,
         round_bf16=compute_dtype == torch.bfloat16,
     )
-    kk = min(k, keys.shape[1])
+    nb = keys.shape[1]
+    kk = min(k, nb)
     # select on the f32 VIEW of the keys: valid keys are bit patterns of
     # positive normal floats (order kept, all 32 bits), tombstones are
     # ~-3e38 normals that sort last
-    fsel, pos = torch.topk(keys.view(torch.float32), kk, dim=1, sorted=True)
-    sel = fsel.view(torch.int32)
+    if final == "slot2" and kk < nb and _slot_plan(nb):
+        sel, pos, drop = _slot2_select(keys, kk, sbits)
+    else:
+        sel, pos = _topk_keys(keys, kk, float_view=True)
+        drop = sbits
     ids = (pos // _LANES) * chunk + (sel & (nsl - 1)).to(pos.dtype) * _LANES \
         + pos % _LANES
-    best = (sel & -(1 << sbits)).view(torch.float32)
+    best = (sel & -(1 << drop)).view(torch.float32)
     # un-bias, then the per-query affine back to negated distances
     negd = (best - inp["bias"]) * inp["qmul"] + inp["qadd"]
     negd = torch.where(best > _INVALID_CUT, negd,
                        torch.full_like(negd, -float("inf")))
     q = inp["q"]
     return negd[:q], ids[:q].to(torch.int32)
+
+
+def _check_final(final: str) -> None:
+    if final not in ("auto", "exact", "approx", "slot2"):
+        raise NotImplementedError(
+            f"final={final!r} is a measurement-only selection of the JAX "
+            f"package and is not ported (ROADMAP Queue 1, item 3)")
 
 
 def fused_scan_topk(
@@ -369,3 +461,180 @@ def fused_scan_topk(
         compute_dtype=compute_dtype, final=final,
     )
     return scores_from_negd(negd, metric), idx
+
+
+# ---------------------------------------------------------------------------
+# unit-norm int8 cosine path: K2, an all-integer epilogue
+# ---------------------------------------------------------------------------
+
+
+def unit_i8_supports(n: int, dim: int, metric) -> bool:
+    """Shape / metric rules of the integer path. ``dim <= 2048`` bounds the
+    packed key: |dot| <= 127*127*dim, and ``dot << 5`` must stay under
+    2^30 so that neither the dead sentinel nor the +2^30 shift overflows
+    int32 (the shifted maximum, 2^30 + 127^2 * 2048 * 32 + 31, also stays
+    below the f32 NaN bit patterns the reference selects on)."""
+    return (
+        Metric.parse(metric) == Metric.COSINE
+        and dim % 128 == 0
+        and dim <= _UNIT_MAX_DIM
+        and n % _CHUNK == 0
+    )
+
+
+def unit_i8_bin_live(valid: torch.Tensor, chunk: int) -> torch.Tensor:
+    """``[nbins]`` bool: bins holding at least one valid row, in the
+    kernels' bin order (chunk-major, lane-minor). ``valid``'s length must
+    divide by ``chunk``."""
+    n = valid.shape[0]
+    nsl = chunk // _LANES
+    return valid.reshape(n // chunk, nsl, _LANES).any(dim=1).reshape(-1)
+
+
+def binmax_scan_i8_ref(queries, codes, *, chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of K2: ``[qp, N // chunk * 128]`` int32 keys.
+
+    The exact int8 product (``torch._int_mm``), then ``(dot << sh) | s``
+    and an integer max over the slices, blocked over row chunks so that it
+    never holds ``[Q, N]`` at once. ``bitwise_left_shift`` wraps a
+    negative int32 as two's complement, as ``jnp.left_shift`` does.
+    """
+    qp = queries.shape[0]
+    n = codes.shape[0]
+    nsl = chunk // _LANES
+    sh = nsl.bit_length() - 1
+    out = torch.empty((qp, n // chunk * _LANES), dtype=torch.int32,
+                      device=codes.device)
+    slices = torch.arange(nsl, dtype=torch.int32, device=codes.device).view(
+        1, 1, nsl, 1)
+    step = max(1, _REF_STEP_BYTES // (qp * chunk * 4)) * chunk
+    for r0 in range(0, n, step):
+        dots = int8_dot(queries, codes[r0:r0 + step])
+        rows = dots.shape[1]
+        keys = torch.bitwise_left_shift(
+            dots.view(qp, rows // chunk, nsl, _LANES), sh) | slices
+        c0 = r0 // chunk * _LANES
+        out[:, c0:c0 + rows // chunk * _LANES] = keys.amax(dim=2).reshape(qp, -1)
+    return out
+
+
+def binmax_scan_i8(queries, codes, *, chunk: int) -> torch.Tensor:
+    """K2: packed per-bin max keys ``(dot << log2(nsl)) | slice``,
+    ``[qp, N // chunk * 128]`` int32.
+
+    Replaces ``coltt_tpu/ops/scan_pallas.py::_int_kernel`` (launched by
+    ``_binmax_scan_i8``). Column ``c`` is chunk ``c // 128``, lane
+    ``c % 128``, as in K1. On a CUDA tensor this launches
+    ``csrc/binmax_scan.cu`` (``coltt_binmax_scan_i8``) or raises; on a CPU
+    tensor it runs :func:`binmax_scan_i8_ref`. ``binmax_scan_i8.launches``
+    counts kernel launches.
+
+    What bounds it on the card: K1's tile loop, so the same s8 x s8
+    product on CUDA cores (``__dp4a``) as K1 on int8 codes; the epilogue is
+    a shift and an or instead of K1's float multiply-add and bit pack.
+    """
+    if codes.device.type == "cpu":
+        return binmax_scan_i8_ref(queries, codes, chunk=chunk)
+    if codes.device.type != "cuda":
+        raise ValueError(f"binmax_scan_i8: unsupported device {codes.device}")
+    if queries.device != codes.device:
+        raise ValueError("binmax_scan_i8: tensors on different devices")
+    if queries.dtype != torch.int8 or codes.dtype != torch.int8:
+        raise TypeError(
+            f"binmax_scan_i8: needs int8 queries and codes, got "
+            f"{queries.dtype} and {codes.dtype}")
+    qp, d = queries.shape
+    n = codes.shape[0]
+    if codes.dim() != 2 or codes.shape[1] != d:
+        raise ValueError(
+            f"binmax_scan_i8: shapes queries {tuple(queries.shape)}, codes "
+            f"{tuple(codes.shape)}")
+    if (chunk not in (_CHUNK, 2 * _CHUNK) or n % chunk or d % 128
+            or d > _UNIT_MAX_DIM or qp == 0):
+        raise ValueError(
+            f"binmax_scan_i8: needs D % 128 == 0, D <= {_UNIT_MAX_DIM} and "
+            f"N % chunk == 0 with chunk in (2048, 4096); got N={n}, D={d}, "
+            f"chunk={chunk}, Q={qp}")
+    if not (queries.is_contiguous() and codes.is_contiguous()):
+        raise ValueError("binmax_scan_i8: tensors must be contiguous")
+    if queries.data_ptr() % 16 or codes.data_ptr() % 16:
+        raise ValueError("binmax_scan_i8: queries / codes must be 16-byte aligned")
+
+    lib = load_kernels().load()
+    out = torch.empty((qp, n // chunk * _LANES), dtype=torch.int32,
+                      device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = lib.coltt_binmax_scan_i8(
+            queries.data_ptr(), codes.data_ptr(), out.data_ptr(), qp, n, d,
+            chunk // _LANES, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"binmax_scan_i8 launch failed: "
+            f"{lib.coltt_error_string(err).decode()}")
+    with _LAUNCHES_MU:
+        binmax_scan_i8.launches += 1
+    return out
+
+
+binmax_scan_i8.launches = 0
+
+
+def fused_unit_i8_neg_topk(queries, codes, gscale, bin_live, *, k,
+                           final: str = "auto"):
+    """Cosine shortlist over unit-norm, global-scale int8 rows.
+
+    Returns ``(negd [Q, k], ids [Q, k])``: the int8-precision negated
+    cosine distance (comparable across stores, since ``gscale`` is global
+    and the query factor is per query) and the row ids. ``final``:
+    "auto" is slot2 above 8192 bins, else exact; "approx" is exact, as in
+    :func:`fused_scan_neg_topk`. Callers rerank the shortlist, which also
+    drops a tombstoned or padding row that won a live bin.
+    """
+    _check_final(final)
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=codes.device)
+    q, d = queries.shape
+    n = codes.shape[0]
+    if not unit_i8_supports(n, d, Metric.COSINE):
+        # a wider dim would overflow the packed key into wrong ids / scores
+        raise ValueError(
+            f"fused_unit_i8_neg_topk unsupported for n={n}, dim={d}: needs "
+            f"dim % 128 == 0, dim <= {_UNIT_MAX_DIM}, n % {_CHUNK} == 0")
+    chunk = chunk_for(n)
+    nsl = chunk // _LANES
+    sh = nsl.bit_length() - 1
+
+    qp, _ = _pick_qblock(q, 32)
+    qf = torch.cat([queries, queries.new_zeros((qp - q, d))]) if qp != q \
+        else queries
+    qi, qscale = quantize_queries_i8(qf)
+
+    packed = binmax_scan_i8(qi.contiguous(), codes, chunk=chunk)
+    packed = torch.where(bin_live.view(1, -1), packed, _DEAD)
+    # +2^30 keeps the low slice bits, makes every real key positive (the
+    # least is ~-1.06e9 > -2^30) and turns _DEAD into exactly 0
+    shifted = packed + (1 << 30)
+    nb = packed.shape[1]
+    kk = min(k, nb)
+    if final == "auto":
+        # slot2 at serving sizes: an exact top-k over [Q, ~31k] bins costs
+        # about as much as the scan (the reference's measured frontier)
+        final = "slot2" if (nb > 8192 and _slot_plan(nb)) else "exact"
+    if final == "slot2" and kk < nb and _slot_plan(nb):
+        ssel, pos, _ = _slot2_select(shifted, kk, sh, float_view=False)
+        # the member tag overwrote the dot's low bits: a <= 2^6 nudge of
+        # a ~1e7-scale dot; the slice bits are intact
+        sel = ssel - (1 << 30)
+    else:
+        _, pos = _topk_keys(shifted, kk, float_view=False)
+        sel = torch.gather(packed, 1, pos)
+    ids = (pos // _LANES) * chunk + (sel & (nsl - 1)).to(pos.dtype) * _LANES \
+        + pos % _LANES
+
+    qn = torch.sqrt((qf * qf).sum(dim=1, keepdim=True)).clamp(min=1e-30)
+    dots = (sel >> sh).to(torch.float32)
+    negd = dots * (gscale * qscale / qn) - 1.0  # cos - 1 = -dist
+    # dead bins sit at ~-2^30 (slot2's tag can nudge _DEAD), real keys
+    # above -2^29
+    negd = torch.where(sel < -(1 << 29), -float("inf"), negd)
+    return negd[:q], ids[:q].to(torch.int32)

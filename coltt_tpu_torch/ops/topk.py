@@ -7,8 +7,8 @@ final ``torch.topk`` merges the ``[Q, blocks*k]`` partials.
 
 The block budget comes from the device's free memory
 (``torch.cuda.mem_get_info``), not from a constant sized for one card.
-``rerank_neg_topk`` / ``rescore_topk`` are not ported yet (ROADMAP Queue 1,
-rerank + slot2 + DistributedFlatIndex).
+``rerank_neg_topk`` / ``rescore_topk`` re-score a shortlist against a
+higher-precision copy of the rows.
 """
 
 from __future__ import annotations
@@ -116,6 +116,70 @@ def scan_topk(
         k=k, metric=metric, compute_dtype=compute_dtype, block_rows=block_rows,
     )
     return scores_from_negd(negd, metric), idx
+
+
+def rerank_neg_topk(
+    queries,
+    negd,
+    ids,
+    rr_codes,
+    *,
+    k: int,
+    metric: Metric = Metric.COSINE,
+    compute_dtype=torch.bfloat16,
+):
+    """Re-score shortlisted candidates against a higher-precision copy.
+
+    ``negd / ids [Q, C]`` come from a (possibly approximate, low-bit)
+    scan; ``rr_codes [N, D]`` is the rerank copy (e.g. bf16 rows; every
+    caller of the reference passes no per-row scale, so the port takes
+    none). A ``[Q, C, D]`` gather feeds :func:`rescore_topk`. Returns ``(negdist [Q, k], ids [Q, k])``
+    on the rerank precision.
+    """
+    metric = Metric.parse(metric)
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=rr_codes.device)
+    safe = ids.clamp(min=0).long()
+    cand = rr_codes[safe]                                   # [Q, C, D]
+    return rescore_topk(queries, cand, negd, ids, k=k, metric=metric,
+                        compute_dtype=compute_dtype)
+
+
+def rescore_topk(
+    queries,
+    cand,
+    negd,
+    ids,
+    *,
+    k: int,
+    metric: Metric = Metric.COSINE,
+    compute_dtype=torch.bfloat16,
+):
+    """Rank ``cand [Q, C, D]`` against ``queries [Q, D]`` and keep the top
+    k of the shortlist; entries whose scan ``negd`` is not finite
+    (tombstones, padding, empty slots) stay at infinite distance.
+
+    Operands are rounded to ``compute_dtype`` and multiplied as f32, with
+    f32 sums, as the reference's bf16 einsum with an f32 result: the
+    product of two bf16 values is exact in f32. (A torch product of bf16
+    tensors would round every dot to bf16.) Elementwise products and
+    sums, not a matmul, so TF32 never applies.
+    """
+    metric = Metric.parse(metric)
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=cand.device)
+    qc = queries.to(compute_dtype).to(torch.float32)
+    cc = cand.to(compute_dtype).to(torch.float32)
+    dots = (cc * qc.unsqueeze(1)).sum(dim=2)                # [Q, C]
+    csq = (cc * cc).sum(dim=2)
+    if metric == Metric.COSINE:
+        qn = torch.sqrt((queries * queries).sum(dim=1, keepdim=True))
+        dist = 1.0 - dots / (qn * torch.sqrt(csq.clamp(min=0.0))).clamp(min=1e-30)
+    else:
+        qsq = (queries * queries).sum(dim=1, keepdim=True)
+        dist = (qsq + csq - 2.0 * dots).clamp(min=0.0)
+    dist = torch.where(torch.isfinite(negd), dist, float("inf"))
+    kk = min(k, dist.shape[1])
+    rneg, sel = torch.topk(-dist, kk, dim=1, largest=True, sorted=True)
+    return rneg, torch.gather(ids, 1, sel)
 
 
 def scores_from_negd(negd, metric: Metric):

@@ -1,0 +1,88 @@
+"""Carry flat-index state between the JAX package and this port as numpy.
+
+``flat_index_from_arrays`` builds a port :class:`DistributedFlatIndex`
+from the arrays of a JAX ``coltt_tpu.parallel.dist_search.DistributedFlatIndex``
+fetched to numpy; :func:`flat_index_to_arrays` is its inverse. The tests
+use them so that both packages search the same state. Codes and the
+rerank copy cross as raw bits, as in ``store/convert.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from coltt_tpu_torch.ops.quant import storage_dtype
+from coltt_tpu_torch.parallel.dist_search import DistributedFlatIndex
+from coltt_tpu_torch.store.convert import _from_bits, _to_bits
+
+
+def flat_index_from_arrays(
+    *,
+    dim: int,
+    metric,
+    quantization,
+    n: int,
+    codes: np.ndarray,
+    valid: np.ndarray,
+    scale: Optional[np.ndarray] = None,
+    sqnorm: Optional[np.ndarray] = None,
+    rr_codes: Optional[np.ndarray] = None,
+    gscale=None,
+    bin_live: Optional[np.ndarray] = None,
+    compute_dtype=None,
+    rerank_dtype=None,
+    device="cuda",
+) -> DistributedFlatIndex:
+    """A port :class:`DistributedFlatIndex` holding exactly these arrays:
+    those of a JAX ``DistributedFlatIndex`` fetched to numpy (``gscale``
+    and ``bin_live`` make it a unit_i8 index). numpy has no bf16 or f8
+    dtype of its own, so codes and ``rr_codes`` cross as raw bits: any
+    array of the element width is reinterpreted as the storage dtype of
+    ``quantization`` (int8 for unit_i8) and ``rerank_dtype``."""
+    idx = DistributedFlatIndex.__new__(DistributedFlatIndex)
+    idx._configure(device, metric, quantization, compute_dtype, rerank_dtype,
+                   unit_i8=gscale is not None)
+    idx.n, idx.dim = int(n), int(dim)
+    rows = codes.shape[0]
+    code_dtype = torch.int8 if idx.unit_i8 else storage_dtype(idx.quantization)
+    idx.codes = _from_bits(codes, code_dtype).reshape(rows, dim).to(idx.device)
+    idx.valid = torch.from_numpy(np.array(valid, bool).reshape(rows)).to(idx.device)
+
+    def f32(a, shape):
+        return (None if a is None else
+                torch.from_numpy(np.array(a, np.float32).reshape(shape)).to(idx.device))
+
+    idx.scale = f32(scale, (rows, 1))
+    idx.sqnorm = f32(sqnorm, (rows,))
+    idx.gscale = f32(gscale, ())
+    idx.bin_live = (None if bin_live is None else
+                    torch.from_numpy(np.array(bin_live, bool).reshape(-1)).to(idx.device))
+    idx.rr_codes = (None if rr_codes is None else
+                    _from_bits(rr_codes, rerank_dtype).reshape(rows, dim).to(idx.device))
+    return idx
+
+
+def flat_index_to_arrays(idx: DistributedFlatIndex) -> dict:
+    """The index's state as numpy: the keyword arguments of
+    :func:`flat_index_from_arrays` (bf16 / f8 as int16 / int8 bits)."""
+    def host(t):
+        return None if t is None else t.cpu().numpy()
+
+    return {
+        "dim": idx.dim,
+        "metric": int(idx.metric),
+        "quantization": int(idx.quantization),
+        "n": idx.n,
+        "codes": _to_bits(idx.codes),
+        "valid": host(idx.valid),
+        "scale": host(idx.scale),
+        "sqnorm": host(idx.sqnorm),
+        "rr_codes": None if idx.rr_codes is None else _to_bits(idx.rr_codes),
+        "gscale": None if idx.gscale is None else float(idx.gscale),
+        "bin_live": host(idx.bin_live),
+        "compute_dtype": idx.compute_dtype,
+        "rerank_dtype": idx.rerank_dtype,
+    }

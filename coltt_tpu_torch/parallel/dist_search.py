@@ -1,0 +1,294 @@
+"""The flat index and its scans (port of ``coltt_tpu/parallel/dist_search.py``).
+
+:class:`DistributedFlatIndex` is the immutable bulk-ingested FLAT index
+that the flagship bench (``coltt_tpu_torch/bench.py``) drives: rows are
+quantized once onto one device, padded to a multiple of the fused
+kernels' largest chunk (4096 rows; padding rows are masked invalid and
+never returned), and searched through
+
+- :func:`sharded_scan_topk`: the plain scan or K1's fused scan, optionally
+  followed by a rerank of a ``k * oversample`` shortlist against a
+  high-precision copy (``rr_codes``);
+- :func:`sharded_unit_i8_topk`: the unit-norm int8 path (K2), whose
+  shortlist is masked against ``valid`` and then reranked.
+
+The JAX ``mesh`` argument becomes a ``torch.device``. Only the
+single-device branches are ported: a sequence of several devices (the
+``shard_map`` branches and their ``_merge_partials``) raises, as do BQ,
+PQ and CFLAT search (ROADMAP Queue 1 items 8, 9, 10 and 12). The plain
+scan's selection is exact: the reference's ``approx_recall`` is
+``lax.approx_max_k``, which is an exact top-k on the CPU where the
+reference is checked, so the port takes no such knob.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from coltt_tpu_torch.ops.distance import Metric
+from coltt_tpu_torch.ops.fused_scan import (
+    _CHUNK,
+    chunk_for,
+    fused_scan_neg_topk,
+    fused_unit_i8_neg_topk,
+    unit_i8_bin_live,
+    unit_i8_supports,
+)
+from coltt_tpu_torch.ops.fused_scan import supports as fused_supports
+from coltt_tpu_torch.ops.quant import Quantization, dequantize, quantize
+from coltt_tpu_torch.ops.topk import (
+    fetch_scores_ids,
+    rerank_neg_topk,
+    scan_neg_topk,
+    scores_from_negd,
+)
+
+
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
+
+
+def _one_device(device) -> torch.device:
+    """The index's device; several devices are the multi-device path."""
+    if isinstance(device, (list, tuple)):
+        if len(device) != 1:
+            _not_ported("search sharded over several devices",
+                        "item 12, multi-device")
+        device = device[0]
+    return torch.device(device)
+
+
+def _scan(queries, codes, scale, sqnorm, valid, *, k, metric, compute_dtype,
+          fused=False, final="auto"):
+    """One scan: K1's fused scan, or the plain blocked scan when ``fused``
+    is off or the kernel's shape rules do not hold."""
+    if fused and fused_supports(codes.shape[0], codes.shape[1], metric,
+                                codes.dtype):
+        return fused_scan_neg_topk(
+            queries, codes, scale, sqnorm, valid,
+            k=k, metric=metric, compute_dtype=compute_dtype, final=final,
+        )
+    return scan_neg_topk(
+        queries, codes, scale, sqnorm, valid,
+        k=k, metric=metric, compute_dtype=compute_dtype,
+    )
+
+
+def sharded_scan_topk(
+    device,
+    codes,
+    scale,
+    sqnorm,
+    valid,
+    queries,
+    *,
+    k: int,
+    metric: Metric = Metric.COSINE,
+    compute_dtype=torch.bfloat16,
+    rr_codes=None,
+    oversample: int = 8,
+    fused: bool = False,
+    final: str = "auto",
+    pq_rerank=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over the index's rows on ``device``: ``(scores [Q, k] on the
+    0-100 scale, ids [Q, k])``.
+
+    ``rr_codes`` enables the rerank: the scan shortlists
+    ``k * oversample`` rows, which are re-scored against ``rr_codes``.
+    ``fused=True`` scans through K1 (``ops/fused_scan.py``) where its
+    shape rules hold.
+    """
+    _one_device(device)
+    metric = Metric.parse(metric)
+    if pq_rerank is not None:
+        _not_ported("the PQ-cache rerank", "item 9, PQ")
+    kw = dict(metric=metric, compute_dtype=compute_dtype, fused=fused,
+              final=final)
+    if rr_codes is None:
+        negd, ids = _scan(queries, codes, scale, sqnorm, valid, k=k, **kw)
+    else:
+        shortlist = min(max(k * oversample, k), codes.shape[0])
+        negd, ids = _scan(queries, codes, scale, sqnorm, valid, k=shortlist, **kw)
+        negd, ids = rerank_neg_topk(
+            queries, negd, ids, rr_codes,
+            k=k, metric=metric, compute_dtype=compute_dtype,
+        )
+    return scores_from_negd(negd, metric), ids
+
+
+def _unit_shortlist(codes, gscale, bin_live, valid, queries, *, k, oversample):
+    """K2's shortlist with rows that are not valid set to -inf. K2 masks
+    only bins without any valid row, so a padding row sharing a live bin
+    can win it (its zero code dots to 0, above every negative cosine)."""
+    shortlist = min(max(k * oversample, k), codes.shape[0])
+    negd, ids = fused_unit_i8_neg_topk(
+        queries, codes, gscale, bin_live, k=shortlist,
+    )
+    ok = (ids >= 0) & valid[ids.clamp(min=0).long()]
+    return torch.where(ok, negd, -float("inf")), ids
+
+
+def sharded_unit_i8_topk(
+    device,
+    codes,
+    gscale,
+    bin_live,
+    valid,
+    rr_codes,
+    queries,
+    *,
+    k: int,
+    oversample: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cosine top-k over unit-norm, global-scale int8 codes on ``device``:
+    K2's shortlist (selection "auto": slot2 above 8192 bins), the
+    valid-row mask, then a bf16 rerank. Returns ``(scores [Q, k] 0-100,
+    ids [Q, k])``."""
+    _one_device(device)
+    negd, ids = _unit_shortlist(codes, gscale, bin_live, valid, queries,
+                                k=k, oversample=oversample)
+    negd, ids = rerank_neg_topk(
+        queries, negd, ids, rr_codes,
+        k=k, metric=Metric.COSINE, compute_dtype=torch.bfloat16,
+    )
+    return scores_from_negd(negd, Metric.COSINE), ids
+
+
+def sharded_bq_topk(*args, **kwargs):
+    """Cosine top-k over binary (BQ) codes: not ported yet."""
+    _not_ported("sharded_bq_topk", "item 8, BQ")
+
+
+def sharded_pq_topk(*args, **kwargs):
+    """Top-k over PQ codes: not ported yet."""
+    _not_ported("sharded_pq_topk", "item 9, PQ")
+
+
+def sharded_cflat_topk(*args, **kwargs):
+    """CFLAT weighted multi-vector search: not ported yet."""
+    _not_ported("sharded_cflat_topk", "item 10, CFLAT")
+
+
+class DistributedFlatIndex:
+    """An immutable FLAT index on one device, for serving benchmarks.
+    Ingest quantizes once; :meth:`search` runs the scans above. Mutable
+    serving uses ``store/flat.py``'s FlatStore.
+
+    ``quantization`` is NONE or a dense codec (F16, BF16, F8, I8);
+    ``rerank_dtype`` (e.g. ``torch.bfloat16``) keeps a high-precision copy
+    for the rerank; ``unit_i8=True`` stores unit-norm rows under one
+    global int8 scale for K2 (cosine only, needs ``rerank_dtype``).
+    """
+
+    def __init__(
+        self,
+        device,
+        vectors,
+        *,
+        metric: Metric = Metric.COSINE,
+        quantization: Quantization = Quantization.NONE,
+        compute_dtype=None,
+        rerank_dtype=None,
+        unit_i8: bool = False,
+    ):
+        self._configure(device, metric, quantization, compute_dtype,
+                        rerank_dtype, unit_i8)
+        n, dim = vectors.shape
+        if self.unit_i8 and (rerank_dtype is None
+                             or not unit_i8_supports(0, dim, self.metric)):
+            raise ValueError(
+                "unit_i8 needs metric=cosine, dim % 128 == 0, dim <= 2048, "
+                "and a rerank_dtype")
+        if self.quantization == Quantization.BQ:
+            _not_ported("the BQ flat index", "item 8, BQ")
+        vectors = torch.as_tensor(vectors, dtype=torch.float32).to(self.device)
+        # pad to a multiple of the fused kernels' largest chunk; padding
+        # rows are masked invalid and never returned
+        pad = (-n) % (2 * _CHUNK)
+        if pad:
+            vectors = torch.cat([vectors, vectors.new_zeros((pad, dim))])
+        self.n = n
+        self.dim = dim
+        valid = torch.arange(vectors.shape[0], device=self.device) < n
+
+        self.gscale = self.bin_live = None
+        if self.unit_i8:
+            # unit-norm rows, ONE global scale: ranking is the raw int dot
+            norms = torch.linalg.vector_norm(vectors, dim=1, keepdim=True)
+            un = vectors / norms.clamp(min=1e-30)
+            gmax = un.abs().amax()
+            self.gscale = torch.where(gmax > 0, gmax / 127.0,
+                                      torch.ones_like(gmax))
+            self.codes = torch.round(un / self.gscale).clamp(-127, 127).to(
+                torch.int8)
+            del un
+            self.bin_live = unit_i8_bin_live(valid, chunk_for(vectors.shape[0]))
+            self.scale = self.sqnorm = None
+        else:
+            self.codes, self.scale = quantize(vectors, self.quantization)
+            deq = dequantize(self.codes, self.scale)
+            self.sqnorm = (deq * deq).sum(dim=1)
+            del deq
+        self.valid = valid
+        self.rr_codes = (vectors.to(rerank_dtype)
+                         if rerank_dtype is not None else None)
+
+    def _configure(self, device, metric, quantization, compute_dtype,
+                   rerank_dtype, unit_i8):
+        """The settings an index holds besides its arrays; ingest and
+        ``parallel/convert.py`` both start here."""
+        self.device = _one_device(device)
+        self.metric = Metric.parse(metric)
+        self.quantization = Quantization.parse(quantization)
+        self.rerank_dtype = rerank_dtype
+        if compute_dtype is None:
+            compute_dtype = (torch.float32
+                             if self.quantization == Quantization.NONE
+                             else torch.bfloat16)
+        self.compute_dtype = compute_dtype
+        self.unit_i8 = bool(unit_i8)
+
+    @classmethod
+    def from_bq_codes(cls, *args, **kwargs):
+        """A BQ index from pre-packed sign codes: not ported yet."""
+        _not_ported("DistributedFlatIndex.from_bq_codes", "item 8, BQ")
+
+    def search_tensors(
+        self, queries: torch.Tensor, k: int, *, oversample: int = 8,
+        fused: bool = False, final: str = "auto",
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`search` on a ``[Q, D]`` f32 tensor on the index's device,
+        returning device tensors ``(scores, ids)`` without waiting for the
+        device (the bench queues batches through this). ``fused`` and
+        ``final`` choose the scan of a non-unit_i8 index; a unit_i8 index
+        always runs K2 with its own selection, as in the reference."""
+        if self.unit_i8:
+            return sharded_unit_i8_topk(
+                self.device, self.codes, self.gscale, self.bin_live,
+                self.valid, self.rr_codes, queries, k=k, oversample=oversample,
+            )
+        return sharded_scan_topk(
+            self.device, self.codes, self.scale, self.sqnorm, self.valid,
+            queries, k=k, metric=self.metric, compute_dtype=self.compute_dtype,
+            rr_codes=self.rr_codes, oversample=oversample, fused=fused,
+            final=final,
+        )
+
+    def search(
+        self, queries, k: int, *, oversample: int = 8, fused: bool = False,
+        final: str = "auto",
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k of each query: host ``(scores [Q, k] 0-100, ids [Q, k])``;
+        an empty slot has score -inf and id -1."""
+        queries = torch.as_tensor(
+            np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
+        scores, ids = self.search_tensors(queries, k, oversample=oversample,
+                                          fused=fused, final=final)
+        scores, ids = fetch_scores_ids(scores, ids)
+        ids = np.where(np.isneginf(scores), -1, ids)
+        return scores, ids
+

@@ -7,10 +7,11 @@ them so that both packages search the same state; the snapshot bytes
 (:meth:`FlatStore.save` / ``load``) are the on-disk route.
 
 numpy has no bf16 or f8 dtype of its own (JAX uses ``ml_dtypes``), so
-codes cross as raw bits: any numpy array of the code width is accepted
-and reinterpreted, and :func:`flat_store_to_arrays` returns bf16 / f8
-codes as ``int16`` / ``int8`` bit patterns (``.view(ml_dtypes.bfloat16)``
-gives the JAX dtype back).
+codes cross as raw bits (:func:`_from_bits`, :func:`_to_bits`; the flat
+index's ``parallel/convert.py`` uses them too): any numpy array of the
+code width is accepted and reinterpreted, and :func:`flat_store_to_arrays`
+returns bf16 / f8 codes as ``int16`` / ``int8`` bit patterns
+(``.view(ml_dtypes.bfloat16)`` gives the JAX dtype back).
 """
 
 from __future__ import annotations
@@ -25,6 +26,22 @@ from coltt_tpu_torch.ops.quant import Quantization
 from coltt_tpu_torch.store.flat import FlatStore, _INT_VIEW
 
 _NP_INT = {1: np.int8, 2: np.int16, 4: np.int32}
+
+
+def _from_bits(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A CPU tensor of ``dtype`` with the raw bits of ``a`` (any numpy
+    array of the element width: ml_dtypes' bf16 / f8 have no torch
+    counterpart)."""
+    raw = np.ascontiguousarray(a).view(_NP_INT[a.dtype.itemsize])
+    return torch.from_numpy(raw.copy()).view(dtype)
+
+
+def _to_bits(t: torch.Tensor) -> np.ndarray:
+    """numpy of ``t``; bf16 / f8 as int16 / int8 bit patterns."""
+    t = t.cpu()
+    if t.dtype not in (torch.float32, torch.int8, torch.float16):
+        t = t.view(_INT_VIEW[t.element_size()])
+    return t.numpy()
 
 
 def flat_store_from_arrays(
@@ -47,10 +64,7 @@ def flat_store_from_arrays(
                       quantization=Quantization.parse(quantization),
                       device=device)
     cap = codes.shape[0]
-    # reinterpret the bits: ml_dtypes' bf16 / f8 have no torch counterpart
-    raw = np.ascontiguousarray(codes).view(_NP_INT[codes.dtype.itemsize])
-    store.codes = (torch.from_numpy(raw.copy()).view(store._qdtype)
-                   .reshape(cap, dim).to(store.device))
+    store.codes = _from_bits(codes, store._qdtype).reshape(cap, dim).to(store.device)
     store.scale = torch.from_numpy(
         np.array(scale, np.float32).reshape(cap, 1)).to(store.device)
     store.sqnorm = torch.from_numpy(
@@ -70,14 +84,11 @@ def flat_store_to_arrays(store: FlatStore) -> dict:
     :func:`flat_store_from_arrays`."""
     with store._mu:
         store.sync()
-        codes = store.codes.cpu()
-        if codes.dtype not in (torch.float32, torch.int8, torch.float16):
-            codes = codes.view(_INT_VIEW[codes.element_size()])
         return {
             "dim": store.dim,
             "metric": int(store.metric),
             "quantization": int(store.quantization),
-            "codes": codes.numpy(),
+            "codes": _to_bits(store.codes),
             "scale": store.scale.cpu().numpy(),
             "sqnorm": store.sqnorm.cpu().numpy(),
             "valid": store.valid.cpu().numpy(),

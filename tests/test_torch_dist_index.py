@@ -1,0 +1,321 @@
+"""The rerank, the flat index and the bench's search of the port vs the
+JAX package.
+
+Inputs are made with numpy and handed to both packages; the JAX index
+runs on a one-device mesh, its Pallas kernels interpreted, as
+``tests/test_parallel.py`` runs it.
+
+Tolerances, stated once:
+
+- rerank / rescore: ids equal (id sets where distances tie); negated
+  distances within 1e-5 absolute for cosine, and within 1e-5 relative for
+  euclidean, whose squared distances reach ~2*D and carry f32 rounding
+  of that size: the f32 sums over D run in another order.
+- the index on state carried across (``flat_index_from_arrays``): ids
+  equal, up to the order of near-tied rows (the rerank's f32 sums differ
+  in the last bits); scores within 1e-3 on the 0-100 scale (1e-5 of a
+  cosine distance, times 50).
+- the index on each package's own ingest: recall@10 against the f32
+  exact scan >= 0.9, as ``tests/test_parallel.py`` asks of the reference;
+  ids and scores against the reference's as on carried state. The codes
+  are bit-identical, except unit-i8's: its global scale within 1e-6
+  relative, and its codes within 1 on at most 1e-5 of the entries (the
+  row norms are summed in another order, which moves a few values across
+  a rounding edge: 1 of 1,048,576 at this seed, scale 1.4e-7 relative).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from coltt_tpu.ops import topk as jtopk
+from coltt_tpu.ops.distance import Metric as JMetric
+from coltt_tpu.ops.quant import Quantization as JQuant
+from coltt_tpu.parallel import dist_search as jds
+from coltt_tpu.parallel.mesh import make_mesh
+from coltt_tpu_torch import bench
+from coltt_tpu_torch.ops import fused_scan as fs
+from coltt_tpu_torch.ops import topk as ttopk
+from coltt_tpu_torch.ops.distance import Metric
+from coltt_tpu_torch.ops.quant import Quantization
+from coltt_tpu_torch.parallel import dist_search as tds
+from coltt_tpu_torch.parallel.convert import flat_index_from_arrays, flat_index_to_arrays
+
+torch.set_num_threads(2)
+
+N, D, K = 8192, 128, 10
+
+
+def _jmesh():
+    return make_mesh(num_shards=1, batch=1)
+
+
+def _same_ids(ti, ji, tn, jn):
+    """Equal rows, or equal id sets among rows whose values agree."""
+    for r in range(ji.shape[0]):
+        if not np.array_equal(ti[r], ji[r]):
+            np.testing.assert_array_equal(np.sort(ti[r]), np.sort(ji[r]))
+            np.testing.assert_allclose(np.sort(tn[r]), np.sort(jn[r]), atol=1e-3)
+
+
+# -- rerank --------------------------------------------------------------------
+
+@pytest.mark.parametrize("metric", [Metric.COSINE, Metric.EUCLIDEAN],
+                         ids=lambda m: m.name)
+def test_rerank_matches_jax(rng, metric):
+    n, q, c = 4096, 6, 40
+    rows = rng.standard_normal((n, D)).astype(np.float32)
+    queries = rng.standard_normal((q, D)).astype(np.float32)
+    ids = np.stack([rng.choice(n, c, replace=False) for _ in range(q)]).astype(np.int32)
+    negd = -rng.uniform(0, 1, (q, c)).astype(np.float32)
+    negd[:, 3] = -np.inf   # a tombstone that won a bin
+    negd[1, :] = -np.inf   # a query with nothing valid
+    ids[2, 7] = -1         # an empty slot
+    negd[2, 7] = -np.inf
+    rr = jnp.asarray(rows).astype(jnp.bfloat16)
+    jn, ji = jtopk.rerank_neg_topk(jnp.asarray(queries), jnp.asarray(negd),
+                                   jnp.asarray(ids), rr, None, k=K,
+                                   metric=int(metric))
+    jn, ji = np.asarray(jn), np.asarray(ji)
+    tn, ti = ttopk.rerank_neg_topk(
+        torch.from_numpy(queries), torch.from_numpy(negd), torch.from_numpy(ids),
+        torch.from_numpy(rows).to(torch.bfloat16), k=K, metric=metric)
+    tn, ti = tn.numpy(), ti.numpy()
+    finite = np.isfinite(jn)
+    np.testing.assert_array_equal(np.isfinite(tn), finite)
+    if metric == Metric.COSINE:
+        np.testing.assert_allclose(tn[finite], jn[finite], rtol=0, atol=1e-5)
+    else:
+        np.testing.assert_allclose(tn[finite], jn[finite], rtol=1e-5, atol=0)
+    assert not finite[1].any()
+    # ids equal where the distances are finite; the -inf tails are ties,
+    # any of the shortlist's masked ids
+    for r in range(q):
+        np.testing.assert_array_equal(ti[r][finite[r]], ji[r][finite[r]])
+        assert set(ti[r][~finite[r]].tolist()) <= set(ids[r][~np.isfinite(negd[r])])
+
+
+def test_rescore_rounds_operands_not_dots(rng):
+    """bf16 operands, f32 products and sums: the port's dot equals the
+    float64 dot of the bf16-rounded operands to f32 precision (a bf16
+    product would miss it by ~1e-3)."""
+    q = rng.standard_normal((2, D)).astype(np.float32)
+    cand = rng.standard_normal((2, 5, D)).astype(np.float32)
+    negd = np.zeros((2, 5), np.float32)
+    ids = np.arange(10, dtype=np.int32).reshape(2, 5)
+    tn, ti = ttopk.rescore_topk(torch.from_numpy(q), torch.from_numpy(cand),
+                                torch.from_numpy(negd), torch.from_numpy(ids),
+                                k=5, metric=Metric.EUCLIDEAN)
+    qb = torch.from_numpy(q).to(torch.bfloat16).double().numpy()
+    cb = torch.from_numpy(cand).to(torch.bfloat16).double().numpy()
+    want = (q.astype(np.float64) ** 2).sum(1)[:, None] + (cb * cb).sum(2) \
+        - 2.0 * np.einsum("qd,qcd->qc", qb, cb)
+    got = -np.take_along_axis(tn.numpy(), np.argsort(ti.numpy() % 5), axis=1)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+# -- the index -------------------------------------------------------------------
+
+_CONFIGS = {
+    # name: (JAX kwargs, port kwargs, search kwargs)
+    "i8-approx": (dict(quantization=JQuant.I8, rerank_dtype=jnp.bfloat16),
+                  dict(quantization=Quantization.I8, rerank_dtype=torch.bfloat16),
+                  dict(fused=True, oversample=4, final="approx")),
+    "i8-slot2": (dict(quantization=JQuant.I8, rerank_dtype=jnp.bfloat16),
+                 dict(quantization=Quantization.I8, rerank_dtype=torch.bfloat16),
+                 dict(fused=True, oversample=4, final="slot2")),
+    "unit-i8": (dict(quantization=JQuant.I8, rerank_dtype=jnp.bfloat16, unit_i8=True),
+                dict(quantization=Quantization.I8, rerank_dtype=torch.bfloat16,
+                     unit_i8=True),
+                dict(oversample=4)),
+    "none": (dict(quantization=JQuant.NONE), dict(quantization=Quantization.NONE),
+             dict()),
+}
+
+
+@pytest.fixture(scope="module")
+def corpus():
+    rng = np.random.default_rng(1)
+    rows = rng.standard_normal((N - 1000, D)).astype(np.float32)  # pads to N
+    queries = rng.standard_normal((16, D)).astype(np.float32)
+    gt = jds.DistributedFlatIndex(_jmesh(), rows, metric=JMetric.COSINE,
+                                  quantization=JQuant.NONE)
+    return rows, queries, gt.search(queries, K)[1]
+
+
+def _jax_arrays(idx):
+    """A JAX index's state as numpy, for flat_index_from_arrays."""
+    host = lambda a: None if a is None else np.asarray(a)  # noqa: E731
+    return dict(
+        dim=idx.dim, metric=int(idx.metric), quantization=int(idx.quantization),
+        n=idx.n, codes=host(idx.codes), valid=host(idx.valid),
+        scale=host(idx.scale), sqnorm=host(idx.sqnorm), rr_codes=host(idx.rr_codes),
+        gscale=host(getattr(idx, "gscale", None)) if idx.unit_i8 else None,
+        bin_live=host(idx.bin_live) if idx.unit_i8 else None,
+    )
+
+
+@pytest.mark.parametrize("config", list(_CONFIGS))
+def test_index_matches_jax(corpus, config):
+    rows, queries, truth = corpus
+    jkw, tkw, skw = _CONFIGS[config]
+    j_idx = jds.DistributedFlatIndex(_jmesh(), rows, metric=JMetric.COSINE, **jkw)
+    t_idx = tds.DistributedFlatIndex("cpu", rows, metric=Metric.COSINE, **tkw)
+    assert t_idx.codes.shape[0] == j_idx.codes.shape[0] == N
+    assert not t_idx.valid[len(rows):].any()
+    js, ji = j_idx.search(queries, K, **skw)
+    ts, ti = t_idx.search(queries, K, **skw)
+    for ids in (ji, ti):
+        assert ttopk.compute_recall(ids, truth) >= 0.9
+        assert ((ids >= 0) & (ids < len(rows))).all()
+    np.testing.assert_allclose(ts, js, rtol=0, atol=1e-3)
+    _same_ids(ti, ji, ts, js)
+    arrays = _jax_arrays(j_idx)
+    codes = flat_index_to_arrays(t_idx)["codes"]
+    if config == "unit-i8":
+        np.testing.assert_allclose(float(t_idx.gscale), arrays["gscale"], rtol=1e-6)
+        diff = np.abs(codes.astype(np.int32) - arrays["codes"].astype(np.int32))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-5, (diff > 0).sum()
+    else:
+        np.testing.assert_array_equal(codes, arrays["codes"].view(codes.dtype))
+
+    # the JAX index's own state, searched by the port
+    carried = flat_index_from_arrays(
+        **arrays, rerank_dtype=tkw.get("rerank_dtype"), device="cpu")
+    cs, ci = carried.search(queries, K, **skw)
+    np.testing.assert_allclose(cs, js, rtol=0, atol=1e-3)
+    _same_ids(ci, ji, cs, js)
+    back = flat_index_from_arrays(**flat_index_to_arrays(carried), device="cpu")
+    bs, bi = back.search(queries, K, **skw)
+    np.testing.assert_array_equal(bi, ci)
+    np.testing.assert_array_equal(bs, cs)
+
+
+def test_index_scores_descend_and_k1_or_k2_selected(corpus):
+    """Fused searches run K1 (CPU: its plain version) and unit-i8 runs K2;
+    scores come back descending on the 0-100 scale."""
+    rows, queries, _ = corpus
+    idx = tds.DistributedFlatIndex("cpu", rows, quantization=Quantization.I8,
+                                   rerank_dtype=torch.bfloat16, unit_i8=True)
+    scores, ids = idx.search(queries, K, oversample=4)
+    assert (scores[:, :-1] >= scores[:, 1:] - 1e-4).all()
+    assert ((scores > 0) & (scores <= 100)).all()
+    np.testing.assert_array_equal(idx.bin_live.numpy(), fs.unit_i8_bin_live(
+        idx.valid, fs.chunk_for(N)).numpy())
+
+
+def test_unit_i8_never_returns_padding_rows(rng):
+    """When every valid row scores a negative cosine, zero-code padding
+    rows (dot exactly 0) win their bins: the valid-row mask before the
+    rerank keeps them out (tests/test_parallel.py, ported)."""
+    n, d, k = 1000, 128, 5  # pads to 4096: mostly padding rows
+    base = np.abs(rng.standard_normal((n, d))).astype(np.float32)
+    q = -np.abs(rng.standard_normal((2, d))).astype(np.float32)
+    idx = tds.DistributedFlatIndex("cpu", base, metric=Metric.COSINE,
+                                   quantization=Quantization.I8,
+                                   rerank_dtype=torch.bfloat16, unit_i8=True)
+    scores, ids = idx.search(q, k)
+    finite = np.isfinite(scores)
+    assert ((ids >= 0) & (ids < n))[finite].all(), ids
+    assert (ids[~finite] == -1).all()
+    s2, i2 = idx.search(base[3:4], k)
+    assert i2[0, 0] == 3 and np.isfinite(s2[0, 0])
+    # the reference agrees on the same rows
+    j_idx = jds.DistributedFlatIndex(_jmesh(), base, metric=JMetric.COSINE,
+                                     quantization=JQuant.I8,
+                                     rerank_dtype=jnp.bfloat16, unit_i8=True)
+    js, ji = j_idx.search(q, k)
+    np.testing.assert_array_equal(np.isfinite(js), finite)
+
+
+def test_unit_i8_requires_cosine_and_rerank(rng):
+    vecs = rng.standard_normal((1024, 256)).astype(np.float32)
+    with pytest.raises(ValueError):
+        tds.DistributedFlatIndex("cpu", vecs, metric=Metric.EUCLIDEAN,
+                                 quantization=Quantization.I8,
+                                 rerank_dtype=torch.bfloat16, unit_i8=True)
+    with pytest.raises(ValueError):
+        tds.DistributedFlatIndex("cpu", vecs, metric=Metric.COSINE,
+                                 quantization=Quantization.I8, unit_i8=True)
+
+
+def test_unported_paths_name_the_roadmap(rng):
+    vecs = rng.standard_normal((64, 128)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
+        tds.DistributedFlatIndex("cpu", vecs, quantization=Quantization.BQ)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tds.DistributedFlatIndex.from_bq_codes("cpu", None, dim=128)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tds.DistributedFlatIndex(["cpu", "cpu"], vecs)
+    for fn, item in ((tds.sharded_bq_topk, "item 8"), (tds.sharded_pq_topk, "item 9"),
+                     (tds.sharded_cflat_topk, "item 10")):
+        with pytest.raises(NotImplementedError, match=item):
+            fn()
+
+
+def test_euclidean_index_matches_jax(rng):
+    """The euclidean metric through the fused scan and the rerank."""
+    rows = rng.standard_normal((4096, D)).astype(np.float32)
+    queries = rng.standard_normal((5, D)).astype(np.float32)
+    j_idx = jds.DistributedFlatIndex(_jmesh(), rows, metric=JMetric.EUCLIDEAN,
+                                     quantization=JQuant.F8,
+                                     rerank_dtype=jnp.bfloat16)
+    carried = flat_index_from_arrays(**_jax_arrays(j_idx),
+                                     rerank_dtype=torch.bfloat16, device="cpu")
+    js, ji = j_idx.search(queries, K, fused=True, oversample=4, final="exact")
+    cs, ci = carried.search(queries, K, fused=True, oversample=4, final="exact")
+    np.testing.assert_allclose(cs, js, rtol=1e-5, atol=1e-4)
+    _same_ids(ci, ji, cs, js)
+
+
+# -- on the card ---------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 and K2 are CUDA kernels with no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unit_i8", [False, True], ids=["k1", "k2"])
+def test_queued_search_never_syncs(rng, cuda_device, unit_i8):
+    """The bench queues searches back to back: nothing on the fused path
+    may wait for the device (a synchronous copy would drain the stream)."""
+    rows = rng.standard_normal((N, D)).astype(np.float32)
+    idx = bench.build_index(rows, cuda_device, unit_i8=unit_i8)
+    q = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32)).to(cuda_device)
+    kw = dict(oversample=4, fused=True, final="approx")
+    idx.search_tensors(q, K, **kw)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scores, ids = idx.search_tensors(q, K, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.isfinite(scores).all() and ((ids >= 0) & (ids < N)).all()
+
+
+# -- the bench's search, at a small size -----------------------------------------
+
+@pytest.mark.parametrize("unit_i8", [False, True], ids=["k1", "k2"])
+def test_bench_run_small(unit_i8):
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((N, D)).astype(np.float32)
+    idx = bench.build_index(rows, "cpu", unit_i8=unit_i8)
+    gt = tds.DistributedFlatIndex("cpu", rows, quantization=Quantization.NONE)
+    rec = bench.run(idx, gt, rng, batch=8, depth=2, warm=1, rounds=2,
+                    recall_queries=16)
+    assert rec["unit"] == "qps" and rec["value"] > 0
+    assert len(rec["qps_rounds"]) == 2 and rec["p50_batch_latency_ms"] > 0
+    assert rec["recall_at_10"] >= 0.9 and rec["recall_queries"] == 16
+    assert rec["unit_i8"] is unit_i8
+    assert rec["final"] == ("auto" if unit_i8 else "approx")
+
+
+def test_bench_main_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert bench.main([]) == 1
+    assert capsys.readouterr().out == ""

@@ -271,8 +271,43 @@ def test_supports_and_unported_modes(rng):
     assert not fs.supports(8192, 768, Metric.COSINE, torch.float16)
     assert fs.chunk_for(8192) == 4096 and fs.chunk_for(2048) == 2048
     vecs, st = _store(rng, n=2048)
+    negd, ids = st.port(vecs[:1], k=1, final="slot2")
+    assert ids.shape == (1, 1) and np.isfinite(negd).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.port(vecs[:1], k=1, final="slot2")
+        st.port(vecs[:1], k=1, final="slot2t")
+
+
+@pytest.mark.parametrize("case", ["planted", "tombstone", "wide-k"])
+def test_fused_slot2_matches_jax(rng, case):
+    """K1 with final="slot2" against the reference's slot2, on the cases
+    of tests/test_scan_pallas.py: planted rows in distinct bins and slots,
+    a tombstoned self-match, and a k wider than the slot2 survivors
+    (exact fallback)."""
+    n = 2048 if case == "wide-k" else N
+    vecs = rng.standard_normal((n, D)).astype(np.float32)
+    q = rng.standard_normal((3, D)).astype(np.float32)
+    planted = [17, BIN_ROWS * 5 + 3, BIN_ROWS * 20, BIN_ROWS * 40 + 99,
+               BIN_ROWS * 60 + 1]
+    k = K
+    if case == "planted":
+        for j, slot in enumerate(planted):
+            vecs[slot] = q[0] * (1.0 + 0.01 * j)
+    st = _Store(vecs)
+    if case == "tombstone":
+        st.valid = np.ones(n, bool)
+        st.valid[7] = False
+        q = vecs[7:8]
+        k = 3
+    if case == "wide-k":
+        k = 64  # nbins = 128 -> width 4, 2 * 4 < 64
+    port = st.port(q, k=k, final="slot2")
+    _assert_same_topk(st.jax(q, k=k, final="slot2"), port)
+    if case == "planted":
+        assert set(port[1][0].tolist()) == set(planted)
+    if case == "tombstone":
+        assert 7 not in port[1][0].tolist()
+    if case == "wide-k":
+        np.testing.assert_array_equal(port[1], st.port(q, k=k, final="exact")[1])
 
 
 def test_wrapper_counts_only_kernel_launches(rng):
