@@ -15,16 +15,27 @@ Phases (each exits non-zero on failure):
 0. card line (``nvidia-smi`` name and power limit) and versions;
 1. kernel build (K1 and K2 share one source), with its time;
 2. K1 against its plain version: small shapes (planted rows, tombstones,
-   zero-dot winners, all-invalid, Q=520) and the serving shape (Q in
-   {8, 2048}, N=1,048,576, D=768) for int8, f8, bf16 and f32 codes.
-   int8 keys must be bit-identical; float keys within 1e-4 of the bias
-   (the f32 sum over D runs in another order), and the top-40 ids
-   selected from them must overlap >= 39/40 per query. Median times of
-   kernel and plain version by CUDA events, after a warm-up;
+   zero-dot winners, all-invalid, Q=520), the edges of the int8
+   tensor-core loop's tiling (Q in {1, 33, 520} unpadded, ragged against
+   its 32 / 64 / 128-query tiles; chunk in {2048, 4096}; D in {128, 768,
+   2048, 3072, 6144}, resident and streamed query tiles; every dot
+   negative) and the serving shape (Q in {8, 2048},
+   N=1,048,576, D=768) for int8, f8, bf16 and f32 codes. int8 keys must
+   be bit-identical; float keys within 1e-4 of the bias (the f32 sum over
+   D runs in another order), and the top-40 ids selected from them must
+   overlap >= 39/40 per query. Median times by CUDA events, after a
+   warm-up, taken in turns: the plain version, the kernel and, for int8
+   codes, the library yardstick (one ``torch._int_mm`` of the same
+   [Q, D] x [D, N] product, which no path of the port calls). Each
+   serving line also gives the bound (the larger of the bytes the
+   function must move over 3.35 TB/s and its operations over the peak
+   rate of their type: 1,979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s
+   f32) and the kernel's share of it;
 2b. K2 against its plain version: small shapes (planted rows, dead bins,
-   D=2048 at the packing's overflow edge, Q=520) and the serving shape
-   (Q in {8, 2048}, N=1,003,520 -- 1M rows padded to 4096 -- D=768). Keys
-   must be bit-identical; median times as in phase 2;
+   D=2048 at the packing's overflow edge, Q=520), the same tiling edges
+   up to D=2048 and the serving shape (Q in {8, 2048}, N=1,003,520 -- 1M rows padded
+   to 4096 -- D=768). Keys must be bit-identical; times, yardstick and
+   bound as in phase 2;
 3. the edge server end to end: recall@10 of the high_resource (K1) and
    the plain exact SearchBatch against f32 ground truth computed on the
    card with TF32 off; K1's must be no more than 0.01 below the plain
@@ -70,9 +81,13 @@ BULK_ROWS = 20_000
 QUERIES = 2048
 TAGS = 8
 REPS = 5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense
 SERVING_N = 1 << 20  # the store's capacity at 1M rows
 INDEX_N = 1_003_520  # the flat index's rows at 1M: padded to 4096
 OVERSAMPLE = 4
+K1_EDGE_DIMS = (128, 768, 2048, 3072, 6144)  # int8 codes: any D % 128 == 0
+K2_EDGE_DIMS = (128, 768, 2048)  # K2 stops at D=2048 (its packed key)
 
 
 class SmokeFailure(Exception):
@@ -100,14 +115,77 @@ def cuda_ms(fn):
     return start.elapsed_time(stop)
 
 
-def timed_pair(plain, kernel, reps=REPS):
-    """Median ms of both, warmed up, measured in turns on one card."""
-    plain(), kernel()
-    tp, tk = [], []
+def timed(*fns, reps=REPS):
+    """Median ms of each function, warmed up, measured in turns on one
+    card."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
     for _ in range(reps):
-        tp.append(cuda_ms(plain))
-        tk.append(cuda_ms(kernel))
-    return statistics.median(tk), statistics.median(tp)
+        for t, fn in zip(times, fns):
+            t.append(cuda_ms(fn))
+    return [statistics.median(t) for t in times]
+
+
+def bound(q, codes, out, *, ops_type, extra_bytes=0):
+    """(bound ms, what bounds it) of a scan of ``q`` against ``codes``
+    writing ``out``: each input read once and the output written once at
+    the card's memory rate, against 2*Q*N*D operations at the peak rate
+    of ``ops_type``."""
+    moved = (q.numel() * q.element_size() + codes.numel() * codes.element_size()
+             + extra_bytes + out.numel() * out.element_size())
+    ops = 2 * q.shape[0] * codes.shape[0] * codes.shape[1]
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[ops_type] * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def int_mm_yardstick(q, codes):
+    """One ``torch._int_mm`` of the same product (cuBLASLt needs M > 16:
+    fewer query rows are zero-padded to 32 before the timing)."""
+    import torch
+
+    if q.shape[0] <= 16:
+        q = torch.cat([q, q.new_zeros((32 - q.shape[0], q.shape[1]))])
+    ct = codes.t()
+    return lambda: torch._int_mm(q, ct)
+
+
+def serving_record(what, err, ms, plain_ms, library_ms, bound_ms, bound_by):
+    share = bound_ms / ms
+    log(f"{what}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.3f} ms'}, bound "
+        f"{bound_ms:.3f} ms ({bound_by}), share of bound {share:.3f}, max key "
+        f"err {err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": share}
+
+
+def tiling_edges(pair, gen, what, dims):
+    """The int8 loop's tiling edges: Q in {1, 33, 520} (unpadded: ragged
+    against the 32 / 64 / 128-query tiles), chunk in {2048, 4096}, each D
+    of ``dims``, on random codes, then every dot negative. At D=2048 the
+    128-query tile streams through the ring beside the codes, at 3072 the
+    64-query one too, at 6144 all three. ``pair(q, codes, chunk, what)``
+    launches the kernel and holds it to its plain version."""
+    import torch
+
+    dev = torch.device("cuda")
+    for d in dims:
+        for chunk in (2048, 4096):
+            n = 8192 if chunk == 4096 else 6144
+            codes = torch.randint(-127, 128, (n, d), device=dev, dtype=torch.int8,
+                                  generator=gen)
+            for nq in (1, 33, 520):
+                q = torch.randint(-127, 128, (nq, d), device=dev, dtype=torch.int8,
+                                  generator=gen)
+                pair(q, codes, chunk, f"{what} Q={nq} chunk={chunk} D={d}")
+    codes = torch.randint(0, 128, (8192, 768), device=dev, dtype=torch.int8,
+                          generator=gen)
+    q = -torch.randint(1, 128, (70, 768), device=dev, dtype=torch.int8, generator=gen)
+    got = pair(q, codes, 4096, f"{what} all-negative dots")
+    check(bool((got < 0).all()), f"{what}: all-negative dots gave a non-negative key")
 
 
 # -- phase 0 / 1 ---------------------------------------------------------------
@@ -260,24 +338,48 @@ def phase_kernels():
     log("[kernels] small shapes: planted, tombstones, zero-dot, all-invalid, "
         "Q=520 ok for int8 / f8 / bf16 / f32 codes")
 
+    def raw_pair(q, codes, chunk, what):
+        n = codes.shape[0]
+        rowmul = torch.rand(n, device=dev, generator=gen) + 0.5
+        rowadd = torch.randn(n, device=dev, generator=gen)
+        kw = dict(chunk=chunk, round_bf16=False)
+        got = fs.binmax_scan(q, codes, rowmul, rowadd, **kw)
+        torch.cuda.synchronize()
+        want = fs.binmax_scan_ref(q, codes, rowmul, rowadd, **kw)
+        check(torch.equal(got, want), f"{what}: int8 keys not bit-identical")
+        return got
+
+    tiling_edges(raw_pair, gen, "K1 int8", K1_EDGE_DIMS)
+    log(f"[kernels] int8 tiling edges: Q in {{1, 33, 520}} x chunk in {{2048, 4096}} "
+        f"x D in {K1_EDGE_DIMS}, all-negative dots: keys bit-identical")
+
     # serving shape
     n, d = SERVING_N, DIM
     x = torch.randn(n, d, device=dev, generator=gen)
     valid = torch.zeros(n, dtype=torch.bool, device=dev)
     valid[:N_ROWS] = True  # the padding past the data is tombstoned
+    ops_type = {torch.int8: "int8", torch.float8_e4m3fn: "bf16",
+                torch.bfloat16: "bf16", torch.float32: "f32"}
     record = None
     for dt in dtypes:
         codes, scale, sqnorm = _store_tensors(x, dt)
         for nq in (8, QUERIES):
             q = torch.randn(nq, d, device=dev, generator=gen)
-            what = f"serving {dt} Q={nq}"
+            what = f"[kernels] serving {dt} Q={nq}"
             args, kw, err = k1_pair(q, codes, scale, sqnorm, valid, what)
-            ms, plain_ms = timed_pair(lambda: fs.binmax_scan_ref(*args, **kw),
-                                      lambda: fs.binmax_scan(*args, **kw))
-            log(f"[kernels] {what}: K1 {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"max key err {err}")
+            fns = [lambda: fs.binmax_scan_ref(*args, **kw),
+                   lambda: fs.binmax_scan(*args, **kw)]
+            if dt == torch.int8:
+                fns.append(int_mm_yardstick(args[0], codes))
+            plain_ms, ms, *library = timed(*fns)
+            out = fs.binmax_scan(*args, **kw)
+            bound_ms, bound_by = bound(args[0], codes, out, ops_type=ops_type[dt],
+                                       extra_bytes=2 * 4 * codes.shape[0])
+            rec = serving_record(what, err, ms, plain_ms,
+                                 library[0] if library else None, bound_ms, bound_by)
             if dt == torch.int8 and nq == QUERIES:
-                record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                record = rec
+            del out
         del codes, scale, sqnorm
     torch.cuda.empty_cache()
     return record
@@ -355,6 +457,10 @@ def phase_k2():
     check(got[0, 0].item() == (127 * 127 * 2048) << 5, "K2: overflow-edge key")
     log("[k2] small shapes: planted, dead bins, all-dead, Q=520 top-1, "
         "D=2048 overflow edge ok")
+    tiling_edges(lambda q, codes, chunk, what: k2_pair(q, codes, chunk, what)[0],
+                 gen, "K2", K2_EDGE_DIMS)
+    log(f"[k2] int8 tiling edges: Q in {{1, 33, 520}} x chunk in {{2048, 4096}} "
+        f"x D in {K2_EDGE_DIMS}, all-negative dots: keys bit-identical")
 
     # serving shape
     codes = torch.randint(-127, 128, (INDEX_N, DIM), device=dev,
@@ -363,14 +469,17 @@ def phase_k2():
     for nq in (8, QUERIES):
         qi = torch.randint(-127, 128, (nq, DIM), device=dev, dtype=torch.int8,
                            generator=gen)
-        what = f"serving int8 Q={nq} N={INDEX_N}"
-        _, err = k2_pair(qi, codes, 4096, what)
-        ms, plain_ms = timed_pair(lambda: fs.binmax_scan_i8_ref(qi, codes, chunk=4096),
-                                  lambda: fs.binmax_scan_i8(qi, codes, chunk=4096))
-        log(f"[k2] {what}: K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"keys bit-identical")
+        what = f"[k2] serving int8 Q={nq} N={INDEX_N}"
+        out, err = k2_pair(qi, codes, 4096, what)
+        plain_ms, ms, library_ms = timed(
+            lambda: fs.binmax_scan_i8_ref(qi, codes, chunk=4096),
+            lambda: fs.binmax_scan_i8(qi, codes, chunk=4096),
+            int_mm_yardstick(qi, codes))
+        bound_ms, bound_by = bound(qi, codes, out, ops_type="int8")
+        rec = serving_record(what, err, ms, plain_ms, library_ms, bound_ms, bound_by)
         if nq == QUERIES:
-            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            record = rec
+        del out
     del codes
     torch.cuda.empty_cache()
     return record

@@ -79,6 +79,8 @@ _REF_STEP_BYTES = 1 << 28
 _DEAD = -(1 << 30)  # K2 key of a bin with no valid row: below every real key
 _UNIT_MAX_DIM = 2048  # |dot| <= 127^2 * D; << 5 must stay under 2^30
 
+_QTILES = (32, 64, 128)  # query tiles the int8 tensor-core loop is built for
+
 _KERNELS = KernelLibrary("binmax_scan")  # K1 and K2
 _LAUNCHES_MU = threading.Lock()  # gRPC worker threads launch concurrently
 
@@ -109,17 +111,26 @@ def _pick_qblock(q: int, align: int) -> tuple[int, int]:
     return blocks * qblock, qblock
 
 
+def int8_query_tile(qp: int) -> int:
+    """Queries per block of the int8 tensor-core loop (K1 on int8 codes,
+    K2): the least of 32, 64 and 128 that covers ``qp``, else 128 (a
+    ragged last tile reads zero rows and stores nothing for them). The
+    kernel keeps the tile resident in shared memory where it fits and
+    streams it beside the codes where it does not, so any D runs."""
+    return next((t for t in _QTILES if t >= qp), _QTILES[-1])
+
+
 def load_kernels() -> KernelLibrary:
     """Build (first use only) and load the library of K1 and K2; returns
     its handle, whose ``build_seconds`` / ``build_log`` describe the build."""
     lib = _KERNELS.load()
     fn = lib.coltt_binmax_scan
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         k2 = lib.coltt_binmax_scan_i8
-        k2.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        k2.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         k2.restype = ctypes.c_int
         lib.coltt_error_string.argtypes = [ctypes.c_int]
         lib.coltt_error_string.restype = ctypes.c_char_p
@@ -181,12 +192,12 @@ def binmax_scan(queries, codes, rowmul, rowadd, *, chunk: int,
 
     What bounds it on the card: at N=1M, D=768 the int8 codes are 0.8 GB,
     0.24 ms of H100 memory bandwidth, while the product is 2*Q*N*D
-    operations (3.2e12 at Q=2048). The design reads the codes about once
-    (query tiles are the grid's fastest axis, so the blocks sharing a
-    chunk hit L2) and never writes the [Q, N] scores; the product runs
-    on CUDA cores (``__dp4a`` / ``fmaf``), so at serving batch sizes the
-    kernel is bound by that arithmetic, not by bytes. Tensor-core tiles
-    (IMMA / wgmma) fed by TMA are the next step.
+    operations (3.3e12 at Q=2048, 1.67 ms at the int8 tensor-core peak).
+    Int8 codes run on tensor cores (wgmma s8 x s8 -> s32 fed by TMA, a
+    query tile of :func:`int8_query_tile` queries); the
+    design reads the codes about once (query tiles are the grid's fastest
+    axis, so the blocks sharing a chunk hit L2) and never writes the
+    [Q, N] scores. Float codes run a CUDA-core loop (``fmaf``).
     """
     if codes.device.type == "cpu":
         return binmax_scan_ref(queries, codes, rowmul, rowadd, chunk=chunk,
@@ -230,7 +241,8 @@ def binmax_scan(queries, codes, rowmul, rowadd, *, chunk: int,
         err = lib.coltt_binmax_scan(
             _CODE_DTYPES[codes.dtype], queries.data_ptr(), codes.data_ptr(),
             rowmul.data_ptr(), rowadd.data_ptr(), out.data_ptr(),
-            qp, n, d, chunk // _LANES, int(bool(round_bf16)), stream,
+            qp, n, d, chunk // _LANES, int(bool(round_bf16)),
+            int8_query_tile(qp), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -529,9 +541,11 @@ def binmax_scan_i8(queries, codes, *, chunk: int) -> torch.Tensor:
     tensor it runs :func:`binmax_scan_i8_ref`. ``binmax_scan_i8.launches``
     counts kernel launches.
 
-    What bounds it on the card: K1's tile loop, so the same s8 x s8
-    product on CUDA cores (``__dp4a``) as K1 on int8 codes; the epilogue is
-    a shift and an or instead of K1's float multiply-add and bit pack.
+    What bounds it on the card: the s8 x s8 product, 2*Q*N*D operations
+    (3.2e12 at Q=2048, N=1,003,520, D=768: 1.60 ms at the int8
+    tensor-core peak); at Q=8 the codes' bytes. It runs K1's int8
+    tensor-core loop; the epilogue is a shift and an or instead of K1's
+    float multiply-add and bit pack.
     """
     if codes.device.type == "cpu":
         return binmax_scan_i8_ref(queries, codes, chunk=chunk)
@@ -567,7 +581,7 @@ def binmax_scan_i8(queries, codes, *, chunk: int) -> torch.Tensor:
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.coltt_binmax_scan_i8(
             queries.data_ptr(), codes.data_ptr(), out.data_ptr(), qp, n, d,
-            chunk // _LANES, stream)
+            chunk // _LANES, int8_query_tile(qp), stream)
     if err != 0:
         raise RuntimeError(
             f"binmax_scan_i8 launch failed: "

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library, loaded with
 ``ctypes``. The build runs at first use, from the sources in the checkout,
 into ``coltt_tpu_torch/build/``; the library's file name carries a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing here runs at import.
+every source and header in ``csrc/`` and of the flags, so an edited source
+or header is rebuilt and an unchanged tree is loaded as it is. Nothing
+here runs at import.
 """
 
 from __future__ import annotations
@@ -62,9 +63,19 @@ class KernelLibrary:
         self._mu = threading.Lock()
 
     def _target(self) -> str:
+        """The library's path: its name carries a hash of the flags and of
+        every ``*.cu``, ``*.cuh`` and ``*.h`` under the source's directory,
+        since the source may include any of them."""
+        src_dir = os.path.dirname(self.source)
         h = hashlib.sha256()
-        with open(self.source, "rb") as f:
-            h.update(f.read())
+        for root, dirs, files in os.walk(src_dir):
+            dirs.sort()
+            for fname in sorted(files):
+                if fname.endswith((".cu", ".cuh", ".h")):
+                    path = os.path.join(root, fname)
+                    h.update(os.path.relpath(path, src_dir).encode() + b"\0")
+                    with open(path, "rb") as f:
+                        h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:16]}.so")
 

@@ -121,14 +121,12 @@ def _two_rounding_keys(qi, codes, rowmul, rowadd, chunk):
     return keys.max(axis=2).reshape(qi.shape[0], -1)
 
 
-@pytest.mark.parametrize("quant", [JQuant.I8, JQuant.F8, JQuant.BF16, JQuant.NONE],
-                         ids=lambda q: q.name)
-def test_binmax_scan_ref_matches_jax_kernel(rng, quant):
+def _check_binmax_scan_ref_against_jax(rng, quant, nq):
     vecs = rng.standard_normal((N, D)).astype(np.float32)
     valid = np.ones(N, bool)
     valid[::7] = False
     st = _Store(vecs, quant, valid)
-    q = rng.standard_normal((40, D)).astype(np.float32)
+    q = rng.standard_normal((nq, D)).astype(np.float32)
     inp = fs.scan_inputs(torch.from_numpy(q), st.t_codes, st.t_scale,
                          st.t_sqnorm, torch.from_numpy(valid), metric=Metric.COSINE)
     chunk = fs.chunk_for(N)
@@ -158,6 +156,68 @@ def test_binmax_scan_ref_matches_jax_kernel(rng, quant):
         tv = (t_keys & -nsl).view(np.float32)[live]
         jv = (j_keys & -nsl).view(np.float32)[live]
         np.testing.assert_allclose(tv, jv, rtol=0, atol=1e-4 * float(inp["bias"]))
+
+
+@pytest.mark.parametrize("quant", [JQuant.I8, JQuant.F8, JQuant.BF16, JQuant.NONE],
+                         ids=lambda q: q.name)
+def test_binmax_scan_ref_matches_jax_kernel(rng, quant):
+    _check_binmax_scan_ref_against_jax(rng, quant, 40)
+
+
+@pytest.mark.parametrize("nq", [1, 33])
+@pytest.mark.parametrize("quant", [JQuant.I8, JQuant.F8], ids=lambda q: q.name)
+def test_binmax_scan_ref_matches_jax_kernel_small_q(rng, quant, nq):
+    """Q=1 and Q=33 pad to 32 and 64 queries, one int8 query tile each."""
+    _check_binmax_scan_ref_against_jax(rng, quant, nq)
+
+
+# -- the int8 loop's query tile ---------------------------------------------
+
+@pytest.mark.parametrize("qp,qtile", [
+    (1, 32), (8, 32), (32, 32), (33, 64), (64, 64), (65, 128), (128, 128),
+    (129, 128), (520, 128), (544, 128), (576, 128), (2048, 128)])
+def test_int8_tile_plan(qp, qtile):
+    """The least of 32, 64 and 128 queries that covers Q, else 128; the
+    width plays no part (the kernel streams a tile that does not fit)."""
+    assert fs.int8_query_tile(qp) == qtile
+
+
+@pytest.mark.parametrize("q", [1, 8, 33, 520, 2048])
+def test_int8_padding_and_tiles(q):
+    """The wrapper pads an int8 batch to a multiple of 32 in blocks of at
+    most 512 queries; the padded batch then splits into whole tiles of
+    32, 64 or 128 queries except for one ragged last tile."""
+    qp, qblock = fs._pick_qblock(q, 32)
+    assert qp >= q and qp % 32 == 0 and qp % qblock == 0 and qblock <= 512
+    assert qp - q < 32 * (qp // qblock)
+    tile = fs.int8_query_tile(qp)
+    assert tile >= min(qp, 128) and (qp <= 128 or tile == 128)
+
+
+def test_supports_int8_width_limit():
+    """Int8 codes take the fused scan at every width that is a multiple
+    of 128, as float codes do: no shared-memory limit on D."""
+    for d in (128, 5120, 5248, 6144, 8192):
+        assert fs.supports(8192, d, Metric.COSINE, torch.int8)
+        assert fs.supports(8192, d, Metric.COSINE, torch.float8_e4m3fn)
+    assert not fs.supports(8192, 6100, Metric.COSINE, torch.int8)
+
+
+def test_fused_int8_wide_d_matches_plain_scan(rng):
+    """D=6144 on int8 codes (the kernel's streamed-query width): the
+    fused search finds the plain exact scan's top-1 for a planted row."""
+    n, d = 4096, 6144
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((3, d)).astype(np.float32)
+    vecs[1234] = q[0]
+    j_codes, j_scale = j_quantize(jnp.asarray(vecs), JQuant.I8)
+    codes, scale = _to_torch(j_codes, torch.int8), _to_torch(j_scale)
+    sqnorm = (torch.from_numpy(vecs) ** 2).sum(1)
+    qt = torch.from_numpy(q)
+    _, ids = fs.fused_scan_neg_topk(qt, codes, scale, sqnorm, None, k=1)
+    _, want = scan_topk(qt, codes, scale, sqnorm, None, k=1)
+    assert ids[0, 0].item() == 1234
+    np.testing.assert_array_equal(ids.numpy(), want.numpy())
 
 
 # -- fused top-k: every K1 case of tests/test_scan_pallas.py -----------------
@@ -328,26 +388,38 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 768, 2048])
+@pytest.mark.parametrize("chunk", [2048, 4096])
+@pytest.mark.parametrize("q", [1, 33, 520])
 @pytest.mark.parametrize("quant", [JQuant.I8, JQuant.F8, JQuant.BF16, JQuant.NONE],
                          ids=lambda q: q.name)
-def test_kernel_matches_plain_version(rng, cuda_device, quant):
+def test_kernel_matches_plain_version(rng, cuda_device, quant, q, chunk, d):
+    """K1 against its plain version at the edges of the int8 loop's tiling:
+    Q ragged against its 32 / 64 / 128-query tiles (the queries go to the
+    kernel unpadded), both chunks, and D from one k-block to a width
+    where the 128-query tile streams through the ring (wider int8 widths:
+    test_int8_kernel_streamed_queries)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    vecs = rng.standard_normal((N, 256)).astype(np.float32)
-    valid = np.ones(N, bool)
+    n = 8192 if chunk == 4096 else 6144
+    assert fs.chunk_for(n) == chunk
+    vecs = rng.standard_normal((n, d)).astype(np.float32)
+    valid = np.ones(n, bool)
     valid[::5] = False
     st = _Store(vecs, quant, valid)
-    q = torch.from_numpy(rng.standard_normal((520, 256)).astype(np.float32))
+    qv = torch.from_numpy(rng.standard_normal((q, d)).astype(np.float32))
     dev = cuda_device
-    inp = fs.scan_inputs(q.to(dev), st.t_codes.to(dev), st.t_scale.to(dev),
+    inp = fs.scan_inputs(qv.to(dev), st.t_codes.to(dev), st.t_scale.to(dev),
                          st.t_sqnorm.to(dev), torch.from_numpy(valid).to(dev),
                          metric=Metric.COSINE)
-    args = (inp["queries"], st.t_codes.to(dev), inp["rowmul"], inp["rowadd"])
-    kw = dict(chunk=fs.chunk_for(N), round_bf16=st.compute[1] == torch.bfloat16)
+    args = (inp["queries"][:q].contiguous(), st.t_codes.to(dev), inp["rowmul"],
+            inp["rowadd"])
+    kw = dict(chunk=chunk, round_bf16=st.compute[1] == torch.bfloat16)
     before = fs.binmax_scan.launches
     got = fs.binmax_scan(*args, **kw)
     torch.cuda.synchronize()
     assert fs.binmax_scan.launches == before + 1
     want = fs.binmax_scan_ref(*args, **kw)
+    assert got.shape == want.shape == (q, n // chunk * 128)
     if quant == JQuant.I8:
         assert torch.equal(got, want)
     else:
@@ -357,3 +429,47 @@ def test_kernel_matches_plain_version(rng, cuda_device, quant):
         diff = ((got & -nsl).view(torch.float32)
                 - (want & -nsl).view(torch.float32))[live].abs().max()
         assert diff.item() <= 1e-4 * float(inp["bias"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [2048, 4096])
+def test_int8_kernel_all_negative_dots(rng, cuda_device, chunk):
+    """Every dot negative (non-negative codes, non-positive queries) and
+    raw row factors, so every key is a negative int32: bit-identical."""
+    n, d, q = (8192 if chunk == 4096 else 6144), 768, 70
+    dev = cuda_device
+    codes = torch.from_numpy(rng.integers(0, 128, (n, d)).astype(np.int8)).to(dev)
+    qi = torch.from_numpy(-rng.integers(1, 128, (q, d)).astype(np.int8)).to(dev)
+    rowmul = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)).to(dev)
+    rowadd = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    got = fs.binmax_scan(qi, codes, rowmul, rowadd, chunk=chunk, round_bf16=False)
+    torch.cuda.synchronize()
+    want = fs.binmax_scan_ref(qi, codes, rowmul, rowadd, chunk=chunk,
+                              round_bf16=False)
+    assert bool((want < 0).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048, 3072, 6144])
+@pytest.mark.parametrize("chunk", [2048, 4096])
+@pytest.mark.parametrize("q", [1, 33, 520])
+def test_int8_kernel_streamed_queries(rng, cuda_device, q, chunk, d):
+    """Widths where the query tile does not stay resident (128 queries
+    past D=1152, 64 past 2560, 32 past 5120) and where it just does: the
+    queries stream through the ring beside the codes. Raw row factors;
+    keys bit-identical."""
+    n = 8192 if chunk == 4096 else 6144
+    dev = cuda_device
+    codes = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8)).to(dev)
+    qi = torch.from_numpy(rng.integers(-127, 128, (q, d)).astype(np.int8)).to(dev)
+    rowmul = torch.from_numpy(rng.uniform(0.5, 2.0, n).astype(np.float32)).to(dev)
+    rowadd = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    before = fs.binmax_scan.launches
+    got = fs.binmax_scan(qi, codes, rowmul, rowadd, chunk=chunk, round_bf16=False)
+    torch.cuda.synchronize()
+    assert fs.binmax_scan.launches == before + 1
+    want = fs.binmax_scan_ref(qi, codes, rowmul, rowadd, chunk=chunk,
+                              round_bf16=False)
+    assert got.shape == (q, n // chunk * 128)
+    assert torch.equal(got, want)

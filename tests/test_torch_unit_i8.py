@@ -50,10 +50,7 @@ def _both_keys(qi, codes, chunk):
 
 # -- K2 keys -----------------------------------------------------------------
 
-@pytest.mark.parametrize("d", [128, 2048])
-@pytest.mark.parametrize("q", [5, 520])
-@pytest.mark.parametrize("chunk", [2048, 4096])
-def test_binmax_scan_i8_ref_matches_jax_kernel(rng, chunk, q, d):
+def _check_binmax_scan_i8_ref_against_jax(rng, chunk, q, d):
     # chunk 2048 needs N % 4096 != 0; D = 2048 keeps N to one or two chunks
     n = {2048: 6144 if d == 128 else 2048, 4096: 8192 if d == 128 else 4096}[chunk]
     assert fs.chunk_for(n) == chunk
@@ -79,6 +76,21 @@ def test_binmax_scan_i8_ref_matches_jax_kernel(rng, chunk, q, d):
         top = (127 * 127 * 2048) << sh
         assert t[0, 0] == top  # row 0 is slice 0 of bin 0
         assert top + (1 << 30) < 0x7F800000  # the shifted key is no f32 NaN
+
+
+@pytest.mark.parametrize("d", [128, 2048])
+@pytest.mark.parametrize("q", [5, 520])
+@pytest.mark.parametrize("chunk", [2048, 4096])
+def test_binmax_scan_i8_ref_matches_jax_kernel(rng, chunk, q, d):
+    _check_binmax_scan_i8_ref_against_jax(rng, chunk, q, d)
+
+
+@pytest.mark.parametrize("d", [128, 2048])
+@pytest.mark.parametrize("q", [1, 33])
+@pytest.mark.parametrize("chunk", [2048, 4096])
+def test_binmax_scan_i8_ref_matches_jax_kernel_small_q(rng, chunk, q, d):
+    """Q=1 and Q=33: one query tile of 32 or 64 queries in the kernel."""
+    _check_binmax_scan_i8_ref_against_jax(rng, chunk, q, d)
 
 
 def test_binmax_scan_i8_planted_slices(rng):
@@ -263,17 +275,29 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [256, 2048])
-def test_k2_kernel_matches_plain_version(rng, cuda_device, d):
-    n = 8192
+@pytest.mark.parametrize("d", [128, 768, 2048])
+@pytest.mark.parametrize("chunk", [2048, 4096])
+@pytest.mark.parametrize("q", [1, 33, 520])
+def test_k2_kernel_matches_plain_version(rng, cuda_device, q, chunk, d):
+    """K2 against its plain version at the edges of the int8 loop's tiling
+    (Q ragged against the query tile, both chunks, D up to 2048, where
+    the 128-query tile streams through the ring), on random codes with a
+    planted match and its negation, and on codes whose every dot is
+    negative."""
+    n = 8192 if chunk == 4096 else 6144
     codes = torch.from_numpy(rng.integers(-127, 128, (n, d)).astype(np.int8))
-    qi = torch.from_numpy(rng.integers(-127, 128, (544, d)).astype(np.int8))
+    qi = torch.from_numpy(rng.integers(-127, 128, (q, d)).astype(np.int8))
     codes[3] = qi[0]
-    codes[4100] = -qi[0]
-    args = (qi.to(cuda_device), codes.to(cuda_device))
-    for chunk in (2048, 4096):
+    codes[n - 5] = -qi[0]
+    negative = torch.from_numpy(rng.integers(0, 128, (n, d)).astype(np.int8))
+    qneg = torch.from_numpy(-rng.integers(1, 128, (q, d)).astype(np.int8))
+    for qs, cs in ((qi, codes), (qneg, negative)):
+        args = (qs.to(cuda_device), cs.to(cuda_device))
         before = fs.binmax_scan_i8.launches
         got = fs.binmax_scan_i8(*args, chunk=chunk)
         torch.cuda.synchronize()
         assert fs.binmax_scan_i8.launches == before + 1
-        assert torch.equal(got, fs.binmax_scan_i8_ref(*args, chunk=chunk))
+        want = fs.binmax_scan_i8_ref(*args, chunk=chunk)
+        assert got.shape == (q, n // chunk * 128)
+        assert torch.equal(got, want)
+    assert bool((want < 0).all())
