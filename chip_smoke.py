@@ -13,24 +13,32 @@ flagship flat index of ``python -m coltt_tpu_torch.bench``.
 Phases (each exits non-zero on failure):
 
 0. card line (``nvidia-smi`` name and power limit) and versions;
-1. kernel build (K1 and K2 share one source), with its time;
-2. K1 against its plain version: small shapes (planted rows, tombstones,
-   zero-dot winners, all-invalid, Q=520), the edges of the int8
-   tensor-core loop's tiling (Q in {1, 33, 520} unpadded, ragged against
-   its 32 / 64 / 128-query tiles; chunk in {2048, 4096}; D in {128, 768,
-   2048, 3072, 6144}, resident and streamed query tiles; every dot
-   negative) and the serving shape (Q in {8, 2048},
-   N=1,048,576, D=768) for int8, f8, bf16 and f32 codes. int8 keys must
-   be bit-identical; float keys within 1e-4 of the bias (the f32 sum over
-   D runs in another order), and the top-40 ids selected from them must
-   overlap >= 39/40 per query. Median times by CUDA events, after a
-   warm-up, taken in turns: the plain version, the kernel and, for int8
-   codes, the library yardstick (one ``torch._int_mm`` of the same
-   [Q, D] x [D, N] product, which no path of the port calls). Each
-   serving line also gives the bound (the larger of the bytes the
-   function must move over 3.35 TB/s and its operations over the peak
-   rate of their type: 1,979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s
-   f32) and the kernel's share of it;
+1. kernel build: one ``nvcc`` per source, started together
+   (``binmax_scan.cu``: K1's int8 loop and K2; ``binmax_scan_float.cu``:
+   K1's float-code loops), with each build's time and every kernel's
+   registers and spills;
+2. K1 against its plain version, on each of its loops: int8 codes
+   (tensor cores, s8), f8 / bf16 codes and f32 codes under
+   ``compute_dtype=bf16`` (tensor cores, bf16 operands), f32 codes and f8 /
+   bf16 codes under ``compute_dtype=f32`` (CUDA cores, exact f32). Small
+   shapes (planted rows, tombstones, zero-dot winners, all-invalid,
+   Q=520), the tiling edges (Q in {1, 33, 520} unpadded, ragged against
+   the query tiles; chunk in {2048, 4096}; D up to 6144, resident and
+   streamed query tiles; for int8 every dot negative) and the serving
+   shape (Q in {8, 2048}, N=1,048,576, D=768). int8 keys must be
+   bit-identical; float keys within 1e-4 of the bias (the f32 sum over D
+   runs in another order), with identical live bins, and the top-40 ids
+   selected from them must overlap >= 39/40 per query. Median times by
+   CUDA events, after a warm-up, taken in turns: the plain version, the
+   kernel and the library yardstick, one PyTorch call of the same
+   [Q, D] x [D, N] product that no path of the port calls
+   (``torch._int_mm`` for int8 codes, a bf16 ``torch.matmul`` for bf16
+   operands, the codes widened to bf16 before the timing, and an f32
+   ``torch.matmul`` with TF32 off for exact f32). Each serving line also
+   gives the bound (the larger of the bytes the function must move over
+   3.35 TB/s and its operations over the peak rate of their type: 1,979
+   TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32) and the kernel's share
+   of it;
 2b. K2 against its plain version: small shapes (planted rows, dead bins,
    D=2048 at the packing's overflow edge, Q=520), the same tiling edges
    up to D=2048 and the serving shape (Q in {8, 2048}, N=1,003,520 -- 1M rows padded
@@ -42,14 +50,19 @@ Phases (each exits non-zero on failure):
    path's. K1's launch count must rise during the high_resource search.
 4. the flat index at 1M x 768d on phase 3's rows, queries and ground
    truth: the I8 + bf16-rerank index searched with K1 and
-   ``final="approx"`` (the bench's configuration) and ``"slot2"``, and
-   the unit-norm int8 index searched through K2 (``auto``, i.e. slot2).
-   Each recall@10 must be >= 0.95 and >= phase 3's K1 recall - 0.01;
-   K1's count must rise during the I8 searches and K2's during the
-   unit-i8 search, and a search of each path run under
-   ``torch.cuda.set_sync_debug_mode("error")`` must not wait for the
-   device. Then a short run of the bench (depth 16, fewer rounds) on each
-   index prints the bench's JSON line.
+   ``final="approx"`` (the bench's configuration) and ``"slot2"``, the
+   unit-norm int8 index searched through K2 (``auto``, i.e. slot2), the
+   F8 + bf16-rerank and the BF16 index through K1's bf16 loop and the
+   f32 (NONE) index through its exact-f32 loop (``approx``). Each
+   recall@10 must be >= 0.95 and >= phase 3's K1 recall - 0.01, no row
+   of the padding may come back and scores must descend; each search
+   must raise the count of its own kernel and loop, and a queued search
+   of each index run under ``torch.cuda.set_sync_debug_mode("error")``
+   must not wait for the device. Then a short run of the bench (depth 16,
+   fewer rounds) on the I8, unit-i8, F8 and BF16 indexes prints the
+   bench's JSON line for each, and one queued round of the F8 index runs
+   under ``torch.profiler`` (device busy and idle share, device ms by
+   kernel).
 
 Each path's launch counts are set to 0 just before it is driven and
 read just after.
@@ -88,6 +101,9 @@ INDEX_N = 1_003_520  # the flat index's rows at 1M: padded to 4096
 OVERSAMPLE = 4
 K1_EDGE_DIMS = (128, 768, 2048, 3072, 6144)  # int8 codes: any D % 128 == 0
 K2_EDGE_DIMS = (128, 768, 2048)  # K2 stops at D=2048 (its packed key)
+K1_SOURCES = {"int8-wgmma": "coltt_tpu_torch/csrc/binmax_scan.cu",
+              "bf16-wgmma": "coltt_tpu_torch/csrc/binmax_scan_float.cu",
+              "f32-simt": "coltt_tpu_torch/csrc/binmax_scan_float.cu"}
 
 
 class SmokeFailure(Exception):
@@ -204,15 +220,23 @@ def phase_card():
 
 
 def phase_build():
+    import re
+
     from coltt_tpu_torch.ops import fused_scan as fs
 
     t0 = time.perf_counter()
-    lib = fs.load_kernels()  # binds K1 and K2; a missing symbol raises
-    log(f"[build] binmax_scan (K1 + K2): nvcc {lib.build_seconds:.2f} s, load "
-        f"{time.perf_counter() - t0:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    libs = fs.load_kernels()  # builds in parallel, binds every entry point
+    log(f"[build] K1 + K2 libraries ready in {time.perf_counter() - t0:.2f} s "
+        f"(one nvcc per source, in parallel)")
+    for lib in libs.values():
+        entries = re.findall(
+            r"entry function '\S*?\d\d(binmax_scan_\w+?_kernel\w*?)EE?v\S*'.*?"
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads.*?Used (\d+) registers",
+            lib.build_log, flags=re.S)
+        log(f"[build] {os.path.basename(lib.source)}: nvcc {lib.build_seconds:.2f} s, "
+            f"{len(entries)} kernels")
+        for name, stores, loads, regs in entries:
+            log(f"[build]   {name}: {regs} registers, spill {stores}/{loads} bytes")
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -268,8 +292,40 @@ def _store_tensors(x, dtype):
     return codes, scale, (deq * deq).sum(dim=1)
 
 
+# (code dtype, compute dtype) of each K1 loop's serving line: int8 codes;
+# f8, bf16 and f32 codes on bf16 operands; f32 codes on exact f32
+_SERVING_CASES = ("int8", "f8", "bf16", "f32-bf16", "f32")
+
+
+def _k1_cases():
+    import torch
+
+    bf, f32 = torch.bfloat16, torch.float32
+    return {"int8": (torch.int8, bf), "f8": (torch.float8_e4m3fn, bf),
+            "bf16": (bf, bf), "f32-bf16": (f32, bf), "f32": (f32, f32),
+            "f8-f32": (torch.float8_e4m3fn, f32), "bf16-f32": (bf, f32)}
+
+
+def library_yardstick(q, codes, round_bf16):
+    """One PyTorch call of K1's [Q, D] x [D, N] product on the same
+    inputs: ``torch._int_mm`` for int8 codes, a bf16 ``torch.matmul`` for
+    bf16 operands (codes widened to bf16 here, before the timing), an f32
+    ``torch.matmul`` (TF32 off) for exact f32."""
+    import torch
+
+    if codes.dtype == torch.int8:
+        return int_mm_yardstick(q, codes)
+    if round_bf16:
+        qb = q.to(torch.bfloat16)
+        cb = codes if codes.dtype == torch.bfloat16 else codes.to(torch.bfloat16)
+        return lambda: torch.matmul(qb, cb.t())
+    ct = codes.to(torch.float32).t()
+    return lambda: torch.matmul(q, ct)
+
+
 def phase_kernels():
-    """K1 vs its plain version; returns the int8 serving-shape record."""
+    """K1 vs its plain version on each loop; returns the serving-shape
+    records (one per code dtype, loop and Q)."""
     import torch
     from coltt_tpu_torch.ops import fused_scan as fs
     from coltt_tpu_torch.ops.distance import Metric
@@ -278,13 +334,14 @@ def phase_kernels():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    dtypes = [torch.int8, torch.float8_e4m3fn, torch.bfloat16, torch.float32]
+    cases = _k1_cases()
 
-    def k1_pair(q, codes, scale, sqnorm, valid, what):
+    def k1_pair(q, codes, scale, sqnorm, valid, what, round_bf16, unpadded=False):
         inp = fs.scan_inputs(q, codes, scale, sqnorm, valid, metric=Metric.COSINE)
         chunk = fs.chunk_for(codes.shape[0])
-        args = (inp["queries"], codes, inp["rowmul"], inp["rowadd"])
-        kw = dict(chunk=chunk, round_bf16=codes.dtype != torch.float32)
+        qk = inp["queries"][:q.shape[0]].contiguous() if unpadded else inp["queries"]
+        args = (qk, codes, inp["rowmul"], inp["rowadd"])
+        kw = dict(chunk=chunk, round_bf16=round_bf16)
         got = fs.binmax_scan(*args, **kw)
         torch.cuda.synchronize()
         want = fs.binmax_scan_ref(*args, **kw)
@@ -292,7 +349,7 @@ def phase_kernels():
                             codes.dtype == torch.int8, what)
         return args, kw, err
 
-    # small shapes: the cases of the reference's kernel tests
+    # small shapes: the cases of the reference's kernel tests, on every loop
     n, d = 8192, 256
     x = torch.randn(n, d, device=dev, generator=gen)
     q = torch.randn(520, d, device=dev, generator=gen)
@@ -300,28 +357,31 @@ def phase_kernels():
     xp = x.clone()
     for j, slot in enumerate(planted):
         xp[slot] = q[0] * (1.0 + 0.01 * j)
-    for dt in dtypes:
+    for case, (dt, cdt) in cases.items():
         codes, scale, sqnorm = _store_tensors(xp, dt)
         valid = torch.ones(n, dtype=torch.bool, device=dev)
         valid[::7] = False
         valid[planted] = True
-        k1_pair(q, codes, scale, sqnorm, valid, f"small {dt} Q=520")
-        _, ids = fs.fused_scan_neg_topk(q[:3], codes, scale, sqnorm, valid, k=5)
-        check(set(ids[0].tolist()) == set(planted), f"planted rows lost ({dt})")
+        k1_pair(q, codes, scale, sqnorm, valid, f"small {case} Q=520",
+                cdt == torch.bfloat16)
+        kw = dict(k=5, compute_dtype=cdt)
+        _, ids = fs.fused_scan_neg_topk(q[:3], codes, scale, sqnorm, valid, **kw)
+        check(set(ids[0].tolist()) == set(planted), f"planted rows lost ({case})")
         # tombstone the self-match of a stored row
         tv = torch.ones(n, dtype=torch.bool, device=dev)
         tv[7] = False
-        _, ids = fs.fused_scan_neg_topk(xp[7:8], codes, scale, sqnorm, tv, k=3)
-        check(7 not in ids[0].tolist(), f"tombstoned row returned ({dt})")
+        _, ids = fs.fused_scan_neg_topk(xp[7:8], codes, scale, sqnorm, tv, **kw)
+        check(7 not in ids[0].tolist(), f"tombstoned row returned ({case})")
         negd, _ = fs.fused_scan_neg_topk(
             xp[:2], codes, scale, sqnorm,
-            torch.zeros(n, dtype=torch.bool, device=dev), k=3)
-        check(bool(torch.isneginf(negd).all()), f"all-invalid store scored ({dt})")
+            torch.zeros(n, dtype=torch.bool, device=dev), **kw)
+        check(bool(torch.isneginf(negd).all()), f"all-invalid store scored ({case})")
         # Q=520: top-1 of K1 vs the plain exact scan
-        _, i_fused = fs.fused_scan_neg_topk(q, codes, scale, sqnorm, valid, k=1)
+        _, i_fused = fs.fused_scan_neg_topk(q, codes, scale, sqnorm, valid, k=1,
+                                            compute_dtype=cdt)
         _, i_exact = scan_topk(q, codes, scale, sqnorm, valid, k=1)
         match = (i_fused[:, 0] == i_exact[:, 0]).float().mean().item()
-        check(match > 0.95, f"Q=520 top-1 agreement {match} ({dt})")
+        check(match > 0.95, f"Q=520 top-1 agreement {match} ({case})")
     # zero-dot winners: every winner scores exactly 0, the rest negative
     zq = torch.zeros(1, 128, device=dev)
     zq[0, 0] = 1.0
@@ -330,13 +390,15 @@ def phase_kernels():
     zx[:, 1] = 1.0
     zplant = [3, 32 + 7, 5 * 32 + 11, 900, 2047]
     zx[zplant, 0] = 0.0
-    k1_pair(zq, zx, None, (zx * zx).sum(1), None, "zero-dot")
-    scores, ids = fs.fused_scan_topk(zq, zx, None, (zx * zx).sum(1), None,
-                                     k=len(zplant), compute_dtype=torch.float32)
-    check(set(ids[0].tolist()) == set(zplant), "zero-dot winners lost their ids")
-    check(bool(((scores - 50.0).abs() < 1e-3).all()), "zero-dot scores != 50")
-    log("[kernels] small shapes: planted, tombstones, zero-dot, all-invalid, "
-        "Q=520 ok for int8 / f8 / bf16 / f32 codes")
+    for cdt in (torch.float32, torch.bfloat16):
+        k1_pair(zq, zx, None, (zx * zx).sum(1), None, f"zero-dot {cdt}",
+                cdt == torch.bfloat16)
+        scores, ids = fs.fused_scan_topk(zq, zx, None, (zx * zx).sum(1), None,
+                                         k=len(zplant), compute_dtype=cdt)
+        check(set(ids[0].tolist()) == set(zplant), "zero-dot winners lost their ids")
+        check(bool(((scores - 50.0).abs() < 1e-3).all()), "zero-dot scores != 50")
+    log(f"[kernels] small shapes: planted, tombstones, zero-dot, all-invalid, "
+        f"Q=520 ok for {', '.join(cases)}")
 
     def raw_pair(q, codes, chunk, what):
         n = codes.shape[0]
@@ -352,37 +414,58 @@ def phase_kernels():
     tiling_edges(raw_pair, gen, "K1 int8", K1_EDGE_DIMS)
     log(f"[kernels] int8 tiling edges: Q in {{1, 33, 520}} x chunk in {{2048, 4096}} "
         f"x D in {K1_EDGE_DIMS}, all-negative dots: keys bit-identical")
+    for case, dims in (("f8", K1_EDGE_DIMS), ("bf16", K1_EDGE_DIMS),
+                       ("f32-bf16", K1_EDGE_DIMS), ("f32", (128, 768, 2048)),
+                       ("f8-f32", (128, 768)), ("bf16-f32", (128, 768))):
+        dt, cdt = cases[case]
+        for d in dims:
+            for chunk in (2048, 4096):
+                n = 8192 if chunk == 4096 else 6144
+                x = torch.randn(n, d, device=dev, generator=gen)
+                codes, scale, sqnorm = _store_tensors(x, dt)
+                valid = torch.rand(n, device=dev, generator=gen) > 0.2
+                for nq in (1, 33, 520):
+                    q = torch.randn(nq, d, device=dev, generator=gen)
+                    k1_pair(q, codes, scale, sqnorm, valid,
+                            f"K1 {case} Q={nq} chunk={chunk} D={d}",
+                            cdt == torch.bfloat16, unpadded=True)
+        log(f"[kernels] {case} tiling edges: Q in {{1, 33, 520}} x chunk in "
+            f"{{2048, 4096}} x D in {dims}: live bins identical, keys within "
+            f"1e-4 of the bias, top-40 overlap >= 39")
 
     # serving shape
     n, d = SERVING_N, DIM
     x = torch.randn(n, d, device=dev, generator=gen)
     valid = torch.zeros(n, dtype=torch.bool, device=dev)
     valid[:N_ROWS] = True  # the padding past the data is tombstoned
-    ops_type = {torch.int8: "int8", torch.float8_e4m3fn: "bf16",
-                torch.bfloat16: "bf16", torch.float32: "f32"}
-    record = None
-    for dt in dtypes:
+    records = []
+    for case in _SERVING_CASES:
+        dt, cdt = cases[case]
+        round_bf16 = cdt == torch.bfloat16
         codes, scale, sqnorm = _store_tensors(x, dt)
+        loop = fs.k1_loop(dt, round_bf16)
         for nq in (8, QUERIES):
             q = torch.randn(nq, d, device=dev, generator=gen)
-            what = f"[kernels] serving {dt} Q={nq}"
-            args, kw, err = k1_pair(q, codes, scale, sqnorm, valid, what)
-            fns = [lambda: fs.binmax_scan_ref(*args, **kw),
-                   lambda: fs.binmax_scan(*args, **kw)]
-            if dt == torch.int8:
-                fns.append(int_mm_yardstick(args[0], codes))
-            plain_ms, ms, *library = timed(*fns)
+            what = f"[kernels] serving {case} ({loop}) Q={nq}"
+            args, kw, err = k1_pair(q, codes, scale, sqnorm, valid, what, round_bf16)
+            plain_ms, ms, library_ms = timed(
+                lambda: fs.binmax_scan_ref(*args, **kw),
+                lambda: fs.binmax_scan(*args, **kw),
+                library_yardstick(args[0], codes, round_bf16))
             out = fs.binmax_scan(*args, **kw)
-            bound_ms, bound_by = bound(args[0], codes, out, ops_type=ops_type[dt],
+            ops_type = "int8" if dt == torch.int8 else ("bf16" if round_bf16 else "f32")
+            bound_ms, bound_by = bound(args[0], codes, out, ops_type=ops_type,
                                        extra_bytes=2 * 4 * codes.shape[0])
-            rec = serving_record(what, err, ms, plain_ms,
-                                 library[0] if library else None, bound_ms, bound_by)
-            if dt == torch.int8 and nq == QUERIES:
-                record = rec
+            rec = serving_record(what, err, ms, plain_ms, library_ms, bound_ms, bound_by)
+            _, qtile, stream = fs.k1_plan(dt, round_bf16, args[0].shape[0], d)
+            records.append({"codes": str(dt).removeprefix("torch."), "loop": loop,
+                            "source": K1_SOURCES[loop], "q": nq, "qtile": qtile,
+                            "stream_queries": stream, **rec})
             del out
+            torch.cuda.empty_cache()
         del codes, scale, sqnorm
     torch.cuda.empty_cache()
-    return record
+    return records
 
 
 # -- phase 2b ------------------------------------------------------------------
@@ -551,7 +634,7 @@ def phase_server(tmp, data, device="cuda"):
     cfg.storage.object_store_root = os.path.join(tmp, "objects")
     cfg.serving.device = device
 
-    fs.binmax_scan.launches = fs.binmax_scan_i8.launches = 0  # this path's counts
+    fs.reset_launch_counts()  # this path's counts
     server = create_server(build_servicer("edge", cfg), cfg)
     server.start()
     channel = grpc.insecure_channel(
@@ -638,9 +721,11 @@ def phase_server(tmp, data, device="cuda"):
         counts, _, ids_again, _ = search_batch(True)
         check(ids_again == ids_k1, "SearchBatch after reload returned other ids")
         launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
-        log(f"[server] launches during the server run: {launches}")
+        by_loop = dict(fs.binmax_scan.launches_by)
+        log(f"[server] launches during the server run: {launches}, K1 by code "
+            f"dtype and loop {by_loop}")
         check(launches["K2"] == 0, "the edge server launched K2")
-        return {"launches": launches, "recall_k1": recall_k1,
+        return {"launches": launches, "k1_by_loop": by_loop, "recall_k1": recall_k1,
                 "recall_plain": recall_plain}
     finally:
         channel.close()
@@ -650,8 +735,10 @@ def phase_server(tmp, data, device="cuda"):
 # -- phase 4 -------------------------------------------------------------------
 
 def phase_flat_index(data, recall_server, device="cuda"):
-    """The flat index at 1M x 768d: the I8 + bf16 index through K1, the
-    unit-i8 index through K2, then a short bench run on each."""
+    """The flat index at 1M x 768d: the I8 + bf16 index through K1's int8
+    loop, the unit-i8 index through K2, the F8 + bf16 and BF16 indexes
+    through K1's bf16 loop and the f32 index through its exact-f32 loop,
+    then a short bench run on each index but the f32 one."""
     import torch
     from coltt_tpu_torch import bench
     from coltt_tpu_torch.ops import fused_scan as fs
@@ -665,43 +752,57 @@ def phase_flat_index(data, recall_server, device="cuda"):
     xd = torch.from_numpy(x).to(dev)
     i8 = bench.build_index(xd, dev, unit_i8=False)
     unit = bench.build_index(xd, dev, unit_i8=True)
+    f8 = DistributedFlatIndex(dev, xd, quantization=Quantization.F8,
+                              rerank_dtype=torch.bfloat16)
+    bf16 = DistributedFlatIndex(dev, xd, quantization=Quantization.BF16)
     gt = DistributedFlatIndex(dev, xd, quantization=Quantization.NONE)
     del xd
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    log(f"[index] upload + I8/bf16, unit-i8 and f32 indexes: "
+    log(f"[index] upload + I8/bf16, unit-i8, F8/bf16, BF16 and f32 indexes: "
         f"{time.perf_counter() - t0:.2f} s")
-    check(i8.codes.shape[0] == unit.codes.shape[0] == -(-N_ROWS // 4096) * 4096,
-          f"index rows {i8.codes.shape[0]}")
+    for idx in (i8, unit, f8, bf16, gt):
+        check(idx.codes.shape[0] == -(-N_ROWS // 4096) * 4096,
+              f"index rows {idx.codes.shape[0]}")
 
-    fs.binmax_scan.launches = fs.binmax_scan_i8.launches = 0  # this path's counts
+    fused = dict(fused=True, final="approx")
+    # name, index, search kwargs, the (code dtype, loop) of K1 it runs
+    # (None: K2)
+    searches = (
+        ("I8 K1 approx", i8, fused, ("int8", fs.LOOP_INT8)),
+        ("I8 K1 slot2", i8, dict(fused=True, final="slot2"), ("int8", fs.LOOP_INT8)),
+        ("unit-i8 K2 auto", unit, {}, None),
+        ("F8 + bf16 rerank K1 approx", f8, fused, ("float8_e4m3fn", fs.LOOP_BF16)),
+        ("BF16 K1 approx", bf16, fused, ("bfloat16", fs.LOOP_BF16)),
+        ("f32 K1 approx", gt, fused, ("float32", fs.LOOP_F32)),
+    )
+    fs.reset_launch_counts()  # this path's counts
     # nothing on the queued path may wait for the device
     q_dev = torch.from_numpy(queries).to(dev)
-    for idx in (i8, unit):
-        idx.search_tensors(q_dev, K, oversample=OVERSAMPLE, fused=True)
+    for idx in (i8, unit, f8, bf16, gt):
+        idx.search_tensors(q_dev, K, oversample=OVERSAMPLE, **fused)
         if dev.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
         try:
-            idx.search_tensors(q_dev, K, oversample=OVERSAMPLE, fused=True)
+            idx.search_tensors(q_dev, K, oversample=OVERSAMPLE, **fused)
         finally:
             if dev.type == "cuda":
                 torch.cuda.set_sync_debug_mode("default")
-    log("[index] queued searches (K1 and K2 paths) never wait for the device")
+    log("[index] queued searches (K1's three loops and K2) never wait for the device")
     recalls = {}
-    for name, idx, kw, kernel in (
-            ("I8 K1 approx", i8, dict(fused=True, final="approx"), "K1"),
-            ("I8 K1 slot2", i8, dict(fused=True, final="slot2"), "K1"),
-            ("unit-i8 K2 auto", unit, {}, "K2")):
-        before = (fs.binmax_scan.launches, fs.binmax_scan_i8.launches)
+    for name, idx, kw, k1_key in searches:
+        before = (fs.binmax_scan.launches, fs.binmax_scan_i8.launches,
+                  fs.binmax_scan.launches_by.get(k1_key, 0))
         t0 = time.perf_counter()
         scores, ids = idx.search(queries, K, oversample=OVERSAMPLE, **kw)
         dt = (time.perf_counter() - t0) * 1e3
-        rose = (fs.binmax_scan.launches > before[0],
-                fs.binmax_scan_i8.launches > before[1])
-        check(rose == ((True, False) if kernel == "K1" else (False, True)),
-              f"{name}: launches K1 {before[0]}->{fs.binmax_scan.launches}, "
-              f"K2 {before[1]}->{fs.binmax_scan_i8.launches}")
+        after = (fs.binmax_scan.launches, fs.binmax_scan_i8.launches,
+                 fs.binmax_scan.launches_by.get(k1_key, 0))
+        want = (True, False, True) if k1_key else (False, True, False)
+        check(tuple(a > b for a, b in zip(after, before)) == want,
+              f"{name}: launches K1 {before[0]}->{after[0]}, K2 {before[1]}->"
+              f"{after[1]}, K1 {k1_key} {before[2]}->{after[2]}")
         check(scores.shape == (QUERIES, K) and np.isfinite(scores).all(),
               f"{name}: non-finite or misshapen scores")
         check(((ids >= 0) & (ids < N_ROWS)).all(), f"{name}: padding row returned")
@@ -714,14 +815,20 @@ def phase_flat_index(data, recall_server, device="cuda"):
               f"{name}: recall {recalls[name]} below 0.95 or phase 3's "
               f"{recall_server} - 0.01")
 
-    for idx in (i8, unit):
+    for idx in (i8, unit, f8, bf16):
         record = bench.run(idx, gt, np.random.default_rng(SEED + 1),
                            warm=1, rounds=2)
         record["device"] = bench.card()
         log(json.dumps(record))
+    if dev.type == "cuda":
+        prof = bench.device_profile(f8, np.random.default_rng(SEED + 2))
+        log(f"[index] F8 + bf16 rerank, one queued round of {bench.DEPTH} x "
+            f"{bench.BATCH} queries under torch.profiler: {json.dumps(prof)}")
     launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
-    log(f"[index] launches during the flat-index run: {launches}")
-    return {"launches": launches, "recalls": recalls}
+    by_loop = dict(fs.binmax_scan.launches_by)
+    log(f"[index] launches during the flat-index run: {launches}, K1 by code "
+        f"dtype and loop {by_loop}")
+    return {"launches": launches, "k1_by_loop": by_loop, "recalls": recalls}
 
 
 def main() -> int:
@@ -747,7 +854,7 @@ def main() -> int:
     try:
         phase_card()
         phase_build()
-        record = phase_kernels()
+        k1_records = phase_kernels()
         k2_record = phase_k2()
         data = make_data()
         run = phase_server(tmp, data)
@@ -759,15 +866,23 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # launches: the flat-index path (phase 4); each path's own count beside
+    for rec in k1_records:
+        key = (rec["codes"], rec["loop"])
+        rec["launches_by_path"] = {"edge_server": run["k1_by_loop"].get(key, 0),
+                                   "flat_index": index_run["k1_by_loop"].get(key, 0)}
+        rec["launches"] = rec["launches_by_path"]["flat_index"]
+    top = next(r for r in k1_records if r["loop"] == "int8-wgmma" and r["q"] == QUERIES)
     kernels = [{
         "name": "K1 binmax_scan",
         "route": "cuda",
-        "source": "coltt_tpu_torch/csrc/binmax_scan.cu",
+        "source": top["source"],
         "replaces": "coltt_tpu/ops/scan_pallas.py:126",
         "launches": index_run["launches"]["K1"],
         "launches_by_path": {"edge_server": run["launches"]["K1"],
                              "flat_index": index_run["launches"]["K1"]},
-        **record,
+        **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                               "bound_ms", "bound_by", "share_of_bound")},
+        "loops": k1_records,
     }, {
         "name": "K2 binmax_scan_i8",
         "route": "cuda",

@@ -76,9 +76,10 @@ def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
         rng: np.random.Generator, *, batch: int = BATCH, depth: int = DEPTH,
         warm: int = WARM, rounds: int = ROUNDS,
         recall_queries: int = RECALL_QUERIES) -> dict:
-    """Time the flagship search of ``idx`` and score its recall against
-    the exact ``gt_idx``; returns the bench's record (without the card).
-    Queries come from ``rng``."""
+    """Time the flagship search of ``idx`` (or of any other index, through
+    the same fused search) and score its recall against the exact
+    ``gt_idx``; returns the bench's record (without the card). Queries
+    come from ``rng``."""
     dim, device = idx.dim, idx.device
 
     def dispatch(q):
@@ -122,8 +123,9 @@ def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
     recall = float(compute_recall(np.concatenate(got), np.concatenate(truth)))
     log(f"recall@{K} vs f32 ({recall_queries} queries): {recall:.4f}")
 
+    rerank = " + bf16 rerank" if idx.rr_codes is not None else ""
     path = ("unit-i8 K2 + bf16 rerank, final=auto" if idx.unit_i8 else
-            f"fused-i8 K1 + bf16 rerank, final={FINAL}")
+            f"fused-{idx.quantization.name.lower()} K1{rerank}, final={FINAL}")
     where = "one GPU" if device.type == "cuda" else f"the {device.type}"
     return {
         "metric": f"FLAT {path}: QPS on {where} at recall@{K} "
@@ -138,6 +140,7 @@ def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
         "p50_query_latency_ms": round(p50_ms / batch, 4),
         "warmup_s": round(warmup_s, 2),
         "unit_i8": idx.unit_i8,
+        "quantization": idx.quantization.name,
         "final": "auto" if idx.unit_i8 else FINAL,
     }
 
@@ -228,7 +231,7 @@ def main(argv=None) -> int:
     log(f"ingest (index + f32 ground-truth index): "
         f"{time.perf_counter() - t0:.1f} s")
 
-    fs.binmax_scan.launches = fs.binmax_scan_i8.launches = 0
+    fs.reset_launch_counts()
     record = run(idx, gt_idx, rng)
     record["kernel_launches"] = {"K1": fs.binmax_scan.launches,
                                  "K2": fs.binmax_scan_i8.launches}

@@ -4,7 +4,8 @@ Port of ``coltt_tpu/ops/scan_pallas.py``: K1 and its wrapper, the slot2
 selection, and K2 with the unit-norm int8 path below. The plain
 scan (:mod:`.topk`) materializes the ``[Q, N]`` f32 score matrix in device
 memory: 8 GB at Q=2048, N=1M, ten times the int8 corpus. K1
-(:func:`binmax_scan`, a CUDA kernel in ``csrc/binmax_scan.cu``) keeps each
+(:func:`binmax_scan`, CUDA kernels in ``csrc/binmax_scan.cu`` for int8
+codes and ``csrc/binmax_scan_float.cu`` for float codes) keeps each
 score tile on chip and reduces it to one survivor per bin of 32 rows (16
 when the store's row count is not a multiple of 4096), so only
 ``[Q, N/32]`` int32 keys reach device memory; an exact ``torch.topk``
@@ -56,7 +57,7 @@ import threading
 import torch
 
 from coltt_tpu_torch.ops.distance import Metric, int8_dot, quantize_queries_i8
-from coltt_tpu_torch.ops.native import KernelLibrary
+from coltt_tpu_torch.ops.native import KernelLibrary, load_all
 from coltt_tpu_torch.ops.topk import scores_from_negd
 
 BIN_ROWS = 32     # max rows per candidate bin (chunk // _LANES)
@@ -66,7 +67,7 @@ _QBLOCK = 512     # max query rows per block of the padded query batch
 _PENALTY = -3.0e38
 _INVALID_CUT = -1.0e30
 
-# code dtype -> the number csrc/binmax_scan.cu dispatches on
+# code dtype -> the number csrc/binmax_common.cuh gives it
 _CODE_DTYPES = {
     torch.int8: 0,
     torch.float8_e4m3fn: 1,
@@ -80,8 +81,23 @@ _DEAD = -(1 << 30)  # K2 key of a bin with no valid row: below every real key
 _UNIT_MAX_DIM = 2048  # |dot| <= 127^2 * D; << 5 must stay under 2^30
 
 _QTILES = (32, 64, 128)  # query tiles the int8 tensor-core loop is built for
+_EXACT_QTILES = (16, 32, 64, 128)  # query tiles of K1's exact-f32 loop
 
-_KERNELS = KernelLibrary("binmax_scan")  # K1 and K2
+# K1's bf16 loop (csrc/binmax_scan_float.cu, bf16_smem_bytes): the same
+# constants, mirrored so that the plan is known before a launch
+_KBLOCK = 64            # elements of D a ring stage carries
+_RING_BUDGET = 64 * 1024  # ring bytes beside resident queries (x2 streamed)
+_STAGING_STRIDE = _LANES + 4
+_SMEM_OPTIN = 232_448   # shared memory an H100 block may opt into
+
+# K1's loops, as binmax_scan routes a call
+LOOP_INT8 = "int8-wgmma"   # int8 codes (csrc/binmax_scan.cu)
+LOOP_BF16 = "bf16-wgmma"   # f8 / bf16 / f32 codes, bf16 operands
+LOOP_F32 = "f32-simt"      # f8 / bf16 / f32 codes, exact f32 operands
+
+# K1 (int8 loop) and K2; K1's float loops: built in parallel
+_KERNELS = {"int8": KernelLibrary("binmax_scan"),
+            "float": KernelLibrary("binmax_scan_float")}
 _LAUNCHES_MU = threading.Lock()  # gRPC worker threads launch concurrently
 
 
@@ -120,20 +136,117 @@ def int8_query_tile(qp: int) -> int:
     return next((t for t in _QTILES if t >= qp), _QTILES[-1])
 
 
-def load_kernels() -> KernelLibrary:
-    """Build (first use only) and load the library of K1 and K2; returns
-    its handle, whose ``build_seconds`` / ``build_log`` describe the build."""
-    lib = _KERNELS.load()
-    fn = lib.coltt_binmax_scan
-    if fn.argtypes is None:
+def bf16_smem_bytes(code_dtype, qtile: int, d: int, stream: bool) -> int:
+    """Shared memory of K1's bf16 loop for a tile of ``qtile`` queries at
+    width ``d``: as ``bf16_smem_bytes`` in ``csrc/binmax_scan_float.cu``
+    lays it out (alignment slack, the resident query tile unless the
+    queries stream, the TMA ring of 64-element k-blocks, the barriers)."""
+    code = _LANES * _KBLOCK * code_dtype.itemsize
+    stage = code + (qtile * 2 * _KBLOCK if stream else 0)
+    stages = min(8, max(2, (2 if stream else 1) * _RING_BUDGET // stage))
+    ring = max(stages * stage, qtile * _STAGING_STRIDE * 4)
+    return 1024 + (0 if stream else qtile * d * 2) + ring + (2 * stages + 1) * 8
+
+
+def bf16_query_tile(qp: int, d: int, code_dtype) -> tuple[int, bool]:
+    """``(queries per block, stream)`` of K1's bf16 loop.
+
+    The least of 32, 64 and 128 queries that covers ``qp`` (else 128),
+    resident in shared memory where it fits beside the ring. A bf16 query
+    row is twice an int8 one, so 128 resident queries fit only up to
+    D=512; a larger batch then takes the widest of 96 and 64 that stays
+    resident (96 at D=768: each code byte that a block reads from L2
+    serves 96 queries). Where none does, the first tile streams its
+    k-blocks through the ring beside the codes, so any D % 128 == 0 runs.
+    """
+    want = int8_query_tile(qp)
+    tiles = (want, 96, 64) if want == 128 else (want,)
+    for t in tiles:
+        if bf16_smem_bytes(code_dtype, t, d, False) <= _SMEM_OPTIN:
+            return t, False
+    return want, True
+
+
+def exact_query_tile(qp: int) -> int:
+    """Queries per block of K1's exact-f32 loop: the least of 16, 32, 64
+    and 128 that covers ``qp``, else 128 (each of 256 threads holds 2 x 4
+    to 8 x 8 (query, bin) pairs: ``launch_f32`` in the C source)."""
+    return next((t for t in _EXACT_QTILES if t >= qp), _EXACT_QTILES[-1])
+
+
+def k1_loop(code_dtype, round_bf16: bool) -> str:
+    """Which of K1's loops serves ``code_dtype`` codes: the int8 loop, the
+    bf16 tensor-core loop (``round_bf16``: f8, bf16 and f32 codes under
+    ``compute_dtype=bf16``) or the exact-f32 CUDA-core loop."""
+    if code_dtype not in _CODE_DTYPES:
+        raise TypeError(f"binmax_scan: unsupported code dtype {code_dtype}")
+    if code_dtype == torch.int8:
+        return LOOP_INT8
+    return LOOP_BF16 if round_bf16 else LOOP_F32
+
+
+def k1_plan(code_dtype, round_bf16: bool, qp: int, d: int) -> tuple[str, int, bool]:
+    """``(loop, queries per block, stream)`` of a K1 call. The int8 loop
+    decides resident against streamed itself (``stream`` is False here);
+    the bf16 loop takes :func:`bf16_query_tile`'s choice."""
+    loop = k1_loop(code_dtype, round_bf16)
+    if loop == LOOP_INT8:
+        return loop, int8_query_tile(qp), False
+    if loop == LOOP_BF16:
+        return (loop, *bf16_query_tile(qp, d, code_dtype))
+    return loop, exact_query_tile(qp), False
+
+
+def kernel_queries(queries, code_dtype, round_bf16: bool) -> torch.Tensor:
+    """The query operand K1's loop reads, made on the queries' device.
+
+    The bf16 loop takes the queries rounded to bf16 once. For f8 and f32
+    codes (wgmma's A fragments widened in registers from the raw code
+    tile) each 64-element k-block is permuted: kernel column 16j + 8h + 2t
+    + e holds element 16t + 4j + 2h + e, so that each fragment thread
+    reads one contiguous run of its code rows
+    (``csrc/binmax_scan_float.cu``). The dot is a sum over D, so the
+    permutation changes only its order. The other loops take ``queries``
+    as they are.
+    """
+    if k1_loop(code_dtype, round_bf16) != LOOP_BF16:
+        return queries
+    qb = queries.to(torch.bfloat16)
+    if code_dtype == torch.bfloat16:
+        return qb.contiguous()
+    qp, d = qb.shape
+    # source element (t, j, h, e) of each k-block goes to (j, h, t, e)
+    return (qb.view(qp, d // _KBLOCK, 4, 4, 2, 2).permute(0, 1, 3, 4, 2, 5)
+            .reshape(qp, d).contiguous())
+
+
+def load_kernels() -> dict:
+    """Build (first use only, one ``nvcc`` per source, in parallel) and
+    load the libraries of K1 and K2: ``{"int8": ..., "float": ...}``,
+    whose ``build_seconds`` / ``build_log`` describe each build."""
+    if all(lib.loaded for lib in _KERNELS.values()):
+        return _KERNELS  # every launch passes here
+    load_all(_KERNELS.values())
+    int8 = _KERNELS["int8"].load()
+    if int8.coltt_binmax_scan_s8.argtypes is None:
+        fn = int8.coltt_binmax_scan_s8
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        k2 = int8.coltt_binmax_scan_i8
+        k2.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        k2.restype = ctypes.c_int
+        fl = _KERNELS["float"].load()
+        fn = fl.coltt_binmax_scan_bf16
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        k2 = lib.coltt_binmax_scan_i8
-        k2.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        k2.restype = ctypes.c_int
-        lib.coltt_error_string.argtypes = [ctypes.c_int]
-        lib.coltt_error_string.restype = ctypes.c_char_p
+        fn = fl.coltt_binmax_scan_f32
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        for lib in (int8, fl):
+            lib.coltt_error_string.argtypes = [ctypes.c_int]
+            lib.coltt_error_string.restype = ctypes.c_char_p
     return _KERNELS
 
 
@@ -184,20 +297,29 @@ def binmax_scan(queries, codes, rowmul, rowadd, *, chunk: int,
 
     Replaces ``coltt_tpu/ops/scan_pallas.py::_kernel`` (launched by
     ``_binmax_scan``). Column ``c`` is chunk ``c // 128``, lane ``c % 128``;
-    the winning slice index is in the key's low bits.
+    the winning slice index is in the key's low bits. ``queries`` are int8
+    for int8 codes, else f32.
 
-    On a CUDA tensor this launches ``csrc/binmax_scan.cu`` or raises; on
-    a CPU tensor it runs :func:`binmax_scan_ref`. ``binmax_scan.launches``
-    counts kernel launches.
+    On a CUDA tensor this launches one of K1's loops (:func:`k1_plan`) or
+    raises; on a CPU tensor it runs :func:`binmax_scan_ref`.
+    ``binmax_scan.launches`` counts kernel launches, and
+    ``binmax_scan.launches_by`` counts them by ``(code dtype, loop)``.
 
-    What bounds it on the card: at N=1M, D=768 the int8 codes are 0.8 GB,
-    0.24 ms of H100 memory bandwidth, while the product is 2*Q*N*D
-    operations (3.3e12 at Q=2048, 1.67 ms at the int8 tensor-core peak).
-    Int8 codes run on tensor cores (wgmma s8 x s8 -> s32 fed by TMA, a
-    query tile of :func:`int8_query_tile` queries); the
-    design reads the codes about once (query tiles are the grid's fastest
-    axis, so the blocks sharing a chunk hit L2) and never writes the
-    [Q, N] scores. Float codes run a CUDA-core loop (``fmaf``).
+    What bounds it on the card, at N=1M, D=768, Q=2048: the product, 2*Q*N*D
+    operations (3.3e12): 1.67 ms on the int8 tensor cores, 3.34 ms on the
+    bf16 ones, 49.2 ms on the f32 CUDA cores; at Q=8 the codes' bytes. The
+    loops, each reading the codes about once (query tiles are the grid's
+    fastest axis, so the blocks sharing a chunk hit L2) and never writing
+    the [Q, N] scores:
+
+    - int8 codes: wgmma s8 x s8 -> s32 fed by TMA (``csrc/binmax_scan.cu``),
+      a query tile of :func:`int8_query_tile` queries;
+    - ``round_bf16`` (f8, bf16 and f32 codes): wgmma bf16 x bf16 -> f32
+      fed by TMA (``csrc/binmax_scan_float.cu``) on the queries rounded to
+      bf16 on the device (:func:`kernel_queries`), a tile of
+      :func:`bf16_query_tile`;
+    - otherwise exact f32 operands on CUDA cores, register-blocked, a tile
+      of :func:`exact_query_tile`.
     """
     if codes.device.type == "cpu":
         return binmax_scan_ref(queries, codes, rowmul, rowadd, chunk=chunk,
@@ -207,9 +329,8 @@ def binmax_scan(queries, codes, rowmul, rowadd, *, chunk: int,
     tensors = (queries, codes, rowmul, rowadd)
     if any(t.device != codes.device for t in tensors):
         raise ValueError("binmax_scan: tensors on different devices")
-    if codes.dtype not in _CODE_DTYPES:
-        raise TypeError(f"binmax_scan: unsupported code dtype {codes.dtype}")
-    want_q = torch.int8 if codes.dtype == torch.int8 else torch.float32
+    loop = k1_loop(codes.dtype, round_bf16)
+    want_q = torch.int8 if loop == LOOP_INT8 else torch.float32
     if queries.dtype != want_q:
         raise TypeError(
             f"binmax_scan: {codes.dtype} codes need {want_q} queries, "
@@ -233,27 +354,47 @@ def binmax_scan(queries, codes, rowmul, rowadd, *, chunk: int,
     if queries.data_ptr() % 16 or codes.data_ptr() % 16:
         raise ValueError("binmax_scan: queries / codes must be 16-byte aligned")
 
-    lib = load_kernels().load()
+    libs = load_kernels()
+    _, qtile, stream_q = k1_plan(codes.dtype, round_bf16, qp, d)
+    kq = kernel_queries(queries, codes.dtype, round_bf16)
     out = torch.empty((qp, n // chunk * _LANES), dtype=torch.int32,
                       device=codes.device)
+    nsl = chunk // _LANES
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = lib.coltt_binmax_scan(
-            _CODE_DTYPES[codes.dtype], queries.data_ptr(), codes.data_ptr(),
-            rowmul.data_ptr(), rowadd.data_ptr(), out.data_ptr(),
-            qp, n, d, chunk // _LANES, int(bool(round_bf16)),
-            int8_query_tile(qp), stream,
-        )
+        head = (kq.data_ptr(), codes.data_ptr(), rowmul.data_ptr(),
+                rowadd.data_ptr(), out.data_ptr(), qp, n, d, nsl, qtile)
+        code = _CODE_DTYPES[codes.dtype]
+        if loop == LOOP_INT8:
+            lib = libs["int8"].load()
+            err = lib.coltt_binmax_scan_s8(*head, stream)
+        elif loop == LOOP_BF16:
+            lib = libs["float"].load()
+            err = lib.coltt_binmax_scan_bf16(code, *head, int(stream_q), stream)
+        else:
+            lib = libs["float"].load()
+            err = lib.coltt_binmax_scan_f32(code, *head, stream)
     if err != 0:
         raise RuntimeError(
-            f"binmax_scan launch failed: "
+            f"binmax_scan launch failed ({loop}, {codes.dtype}): "
             f"{lib.coltt_error_string(err).decode()}")
     with _LAUNCHES_MU:
         binmax_scan.launches += 1
+        key = (str(codes.dtype).removeprefix("torch."), loop)
+        binmax_scan.launches_by[key] = binmax_scan.launches_by.get(key, 0) + 1
     return out
 
 
 binmax_scan.launches = 0
+binmax_scan.launches_by = {}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel launch count of this module to 0."""
+    with _LAUNCHES_MU:
+        binmax_scan.launches = 0
+        binmax_scan.launches_by = {}
+        binmax_scan_i8.launches = 0
 
 
 def _slot_plan(nb: int):
@@ -574,7 +715,7 @@ def binmax_scan_i8(queries, codes, *, chunk: int) -> torch.Tensor:
     if queries.data_ptr() % 16 or codes.data_ptr() % 16:
         raise ValueError("binmax_scan_i8: queries / codes must be 16-byte aligned")
 
-    lib = load_kernels().load()
+    lib = load_kernels()["int8"].load()
     out = torch.empty((qp, n // chunk * _LANES), dtype=torch.int32,
                       device=codes.device)
     with torch.cuda.device(codes.device):

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``ctypes``. The build runs at first use, from the sources in the checkout,
 into ``coltt_tpu_torch/build/``; the library's file name carries a hash of
 every source and header in ``csrc/`` and of the flags, so an edited source
-or header is rebuilt and an unchanged tree is loaded as it is. Nothing
-here runs at import.
+or header is rebuilt and an unchanged tree is loaded as it is.
+:func:`load_all` runs one ``nvcc`` per source, all at once. Nothing here
+runs at import.
 """
 
 from __future__ import annotations
@@ -79,6 +80,10 @@ class KernelLibrary:
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
+    @property
+    def loaded(self) -> bool:
+        return self._lib is not None
+
     def load(self) -> ctypes.CDLL:
         with self._mu:
             if self._lib is not None:
@@ -106,3 +111,27 @@ class KernelLibrary:
                     self.build_log = f.read()
             self._lib = ctypes.CDLL(target)
             return self._lib
+
+
+def load_all(libraries) -> None:
+    """Load every :class:`KernelLibrary` of ``libraries``, building the
+    missing ones with one ``nvcc`` each, all started together. Raises the
+    first build error after every build has ended."""
+    libraries = [lib for lib in libraries if not lib.loaded]
+    if not libraries:
+        return  # the launch path: nothing to build, no thread to start
+    errors = []
+
+    def build(lib):
+        try:
+            lib.load()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(lib,)) for lib in libraries]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]

@@ -131,6 +131,15 @@ _CONFIGS = {
                 dict(oversample=4)),
     "none": (dict(quantization=JQuant.NONE), dict(quantization=Quantization.NONE),
              dict()),
+    # K1's float-code loops: bf16 operands (f8 codes with a bf16 rerank,
+    # bf16 codes) and exact f32 (NONE)
+    "f8-approx": (dict(quantization=JQuant.F8, rerank_dtype=jnp.bfloat16),
+                  dict(quantization=Quantization.F8, rerank_dtype=torch.bfloat16),
+                  dict(fused=True, oversample=4, final="approx")),
+    "bf16-approx": (dict(quantization=JQuant.BF16), dict(quantization=Quantization.BF16),
+                    dict(fused=True, oversample=4, final="approx")),
+    "none-fused": (dict(quantization=JQuant.NONE), dict(quantization=Quantization.NONE),
+                   dict(fused=True, oversample=4, final="approx")),
 }
 
 

@@ -182,6 +182,102 @@ def test_int8_tile_plan(qp, qtile):
     assert fs.int8_query_tile(qp) == qtile
 
 
+_F8, _BF16, _F32, _I8 = (torch.float8_e4m3fn, torch.bfloat16, torch.float32,
+                         torch.int8)
+
+
+@pytest.mark.parametrize("dtype,round_bf16,q,d,plan", [
+    # int8 codes: the int8 loop, which decides resident / streamed itself
+    (_I8, False, 8, 768, ("int8-wgmma", 32, False)),
+    (_I8, True, 2048, 768, ("int8-wgmma", 128, False)),
+    # bf16 operands: 128 resident queries fit only up to D=512, then 96
+    # (D=768) or 64 (D=1024); past that the tile streams
+    (_F8, True, 8, 768, ("bf16-wgmma", 32, False)),
+    (_F8, True, 33, 768, ("bf16-wgmma", 64, False)),
+    (_F8, True, 2048, 768, ("bf16-wgmma", 96, False)),
+    (_BF16, True, 2048, 768, ("bf16-wgmma", 96, False)),
+    (_F32, True, 2048, 768, ("bf16-wgmma", 96, False)),
+    (_BF16, True, 520, 512, ("bf16-wgmma", 128, False)),
+    (_BF16, True, 2048, 1024, ("bf16-wgmma", 64, False)),
+    (_F8, True, 520, 2048, ("bf16-wgmma", 128, True)),
+    (_BF16, True, 33, 2048, ("bf16-wgmma", 64, True)),
+    (_BF16, True, 1, 2048, ("bf16-wgmma", 32, False)),
+    (_F32, True, 1, 6144, ("bf16-wgmma", 32, True)),
+    # exact f32 operands: the CUDA-core loop, any float code
+    (_F32, False, 8, 768, ("f32-simt", 16, False)),
+    (_F32, False, 33, 768, ("f32-simt", 64, False)),
+    (_F32, False, 2048, 768, ("f32-simt", 128, False)),
+    (_F8, False, 520, 6144, ("f32-simt", 128, False)),
+    (_BF16, False, 17, 128, ("f32-simt", 32, False)),
+])
+def test_k1_routing_and_tile_plan(dtype, round_bf16, q, d, plan):
+    """Which of K1's loops a call takes, its query tile, and resident or
+    streamed queries; every resident plan fits the card's shared memory
+    and the widest resident tile is taken."""
+    assert fs.k1_plan(dtype, round_bf16, q, d) == plan
+    loop, tile, stream = plan
+    if loop == "bf16-wgmma":
+        assert fs.bf16_smem_bytes(dtype, tile, d, stream) <= fs._SMEM_OPTIN
+        if not stream and tile < fs.int8_query_tile(q):
+            assert fs.bf16_smem_bytes(dtype, fs.int8_query_tile(q), d,
+                                      False) > fs._SMEM_OPTIN
+
+
+def test_k1_routing_rejects_other_codes():
+    with pytest.raises(TypeError):
+        fs.k1_loop(torch.float16, True)
+
+
+def _permute_kblocks(x):
+    """The column order kernel_queries gives f8 / f32 codes' queries."""
+    r, d = x.shape
+    return x.view(r, d // 64, 4, 4, 2, 2).permute(0, 1, 3, 4, 2, 5).reshape(r, d)
+
+
+@pytest.mark.parametrize("quant", [JQuant.F8, JQuant.BF16, JQuant.NONE],
+                         ids=lambda q: q.name)
+def test_kernel_queries_round_once_and_give_the_plain_keys(rng, quant):
+    """The bf16 loop's query operand, made by the wrapper on the queries'
+    device: each value rounded to bf16 once, k-blocks permuted for the
+    codes whose A fragments are widened in registers (f8, f32). With the
+    code columns permuted alike, the plain version on it gives the keys of
+    the plain version on the f32 queries: the same live bins, values
+    within 1e-4 of the bias (the f32 sum runs in another order)."""
+    n, d = 4096, 256
+    st = _Store(rng.standard_normal((n, d)).astype(np.float32), quant)
+    q = torch.from_numpy(rng.standard_normal((24, d)).astype(np.float32))
+    inp = fs.scan_inputs(q, st.t_codes, st.t_scale, st.t_sqnorm, None,
+                         metric=Metric.COSINE)
+    kq = fs.kernel_queries(inp["queries"], st.t_codes.dtype, True)
+    assert kq.dtype == torch.bfloat16 and kq.shape == inp["queries"].shape
+    assert kq.device == inp["queries"].device
+    rounded = inp["queries"].to(torch.bfloat16)
+    permuted = quant != JQuant.BF16
+    want_q = _permute_kblocks(rounded) if permuted else rounded
+    assert torch.equal(kq.view(torch.int16), want_q.view(torch.int16))
+    codes = (_permute_kblocks(st.t_codes.view(torch.uint8) if quant == JQuant.F8
+                              else st.t_codes)
+             if permuted else st.t_codes)
+    if quant == JQuant.F8:
+        codes = codes.contiguous().view(torch.float8_e4m3fn)
+    chunk = fs.chunk_for(n)
+    got = fs.binmax_scan_ref(kq.float(), codes.contiguous(), inp["rowmul"],
+                             inp["rowadd"], chunk=chunk, round_bf16=True)
+    want = fs.binmax_scan_ref(inp["queries"], st.t_codes, inp["rowmul"],
+                              inp["rowadd"], chunk=chunk, round_bf16=True)
+    nsl = chunk // 128
+    assert torch.equal(got > 0, want > 0)
+    diff = ((got & -nsl).view(torch.float32) - (want & -nsl).view(torch.float32))
+    assert diff.abs().max().item() <= 1e-4 * float(inp["bias"])
+
+
+def test_kernel_queries_of_other_loops_pass_through(rng):
+    q = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
+    assert fs.kernel_queries(q, torch.float32, False) is q
+    qi = torch.zeros((8, 128), dtype=torch.int8)
+    assert fs.kernel_queries(qi, torch.int8, False) is qi
+
+
 @pytest.mark.parametrize("q", [1, 8, 33, 520, 2048])
 def test_int8_padding_and_tiles(q):
     """The wrapper pads an int8 batch to a multiple of 32 in blocks of at
@@ -387,19 +483,20 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [128, 768, 2048])
-@pytest.mark.parametrize("chunk", [2048, 4096])
-@pytest.mark.parametrize("q", [1, 33, 520])
-@pytest.mark.parametrize("quant", [JQuant.I8, JQuant.F8, JQuant.BF16, JQuant.NONE],
-                         ids=lambda q: q.name)
-def test_kernel_matches_plain_version(rng, cuda_device, quant, q, chunk, d):
-    """K1 against its plain version at the edges of the int8 loop's tiling:
-    Q ragged against its 32 / 64 / 128-query tiles (the queries go to the
-    kernel unpadded), both chunks, and D from one k-block to a width
-    where the 128-query tile streams through the ring (wider int8 widths:
-    test_int8_kernel_streamed_queries)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+# (quantization, round_bf16): each code dtype on its loop, and f32 codes
+# under compute_dtype=bf16 on the bf16 loop
+_KERNEL_CASES = {
+    "I8": (JQuant.I8, False),
+    "F8": (JQuant.F8, True),
+    "BF16": (JQuant.BF16, True),
+    "NONE": (JQuant.NONE, False),
+    "NONE-bf16": (JQuant.NONE, True),
+    "F8-f32": (JQuant.F8, False),
+    "BF16-f32": (JQuant.BF16, False),
+}
+
+
+def _check_kernel_against_plain(rng, dev, quant, round_bf16, q, chunk, d):
     n = 8192 if chunk == 4096 else 6144
     assert fs.chunk_for(n) == chunk
     vecs = rng.standard_normal((n, d)).astype(np.float32)
@@ -407,13 +504,12 @@ def test_kernel_matches_plain_version(rng, cuda_device, quant, q, chunk, d):
     valid[::5] = False
     st = _Store(vecs, quant, valid)
     qv = torch.from_numpy(rng.standard_normal((q, d)).astype(np.float32))
-    dev = cuda_device
     inp = fs.scan_inputs(qv.to(dev), st.t_codes.to(dev), st.t_scale.to(dev),
                          st.t_sqnorm.to(dev), torch.from_numpy(valid).to(dev),
                          metric=Metric.COSINE)
     args = (inp["queries"][:q].contiguous(), st.t_codes.to(dev), inp["rowmul"],
             inp["rowadd"])
-    kw = dict(chunk=chunk, round_bf16=st.compute[1] == torch.bfloat16)
+    kw = dict(chunk=chunk, round_bf16=round_bf16)
     before = fs.binmax_scan.launches
     got = fs.binmax_scan(*args, **kw)
     torch.cuda.synchronize()
@@ -429,6 +525,36 @@ def test_kernel_matches_plain_version(rng, cuda_device, quant, q, chunk, d):
         diff = ((got & -nsl).view(torch.float32)
                 - (want & -nsl).view(torch.float32))[live].abs().max()
         assert diff.item() <= 1e-4 * float(inp["bias"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 768, 2048])
+@pytest.mark.parametrize("chunk", [2048, 4096])
+@pytest.mark.parametrize("q", [1, 33, 520])
+@pytest.mark.parametrize("case", list(_KERNEL_CASES))
+def test_kernel_matches_plain_version(rng, cuda_device, case, q, chunk, d):
+    """K1 against its plain version at the edges of its loops' tiling: Q
+    ragged against the query tiles (the queries go to the kernel
+    unpadded), both chunks, and D from one k-block to a width where a
+    128-query tile streams through the ring (wider: the streamed-query
+    tests). Every code dtype on its loop, f32 codes on the bf16 loop too,
+    and f8 / bf16 codes on the exact-f32 loop."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _check_kernel_against_plain(rng, cuda_device, *_KERNEL_CASES[case], q, chunk, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048, 3072, 6144])
+@pytest.mark.parametrize("chunk", [2048, 4096])
+@pytest.mark.parametrize("q", [1, 33, 520])
+@pytest.mark.parametrize("case", ["F8", "BF16"])
+def test_bf16_kernel_streamed_queries(rng, cuda_device, case, q, chunk, d):
+    """The bf16 loop where its query tile streams through the ring beside
+    the codes (bf16_query_tile) and where the 32-query tile just stays
+    resident (D=2048): live bins identical, keys within 1e-4 of the
+    bias."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _check_kernel_against_plain(rng, cuda_device, *_KERNEL_CASES[case], q, chunk, d)
 
 
 @pytest.mark.cuda
