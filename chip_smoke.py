@@ -64,6 +64,33 @@ Phases (each exits non-zero on failure):
    under ``torch.profiler`` (device busy and idle share, device ms by
    kernel).
 
+5. BQ at 1,048,576 x 768 (the corpus recipe of ``bench_bq.py``: 16,384
+   centres, sigma 0.35, made on the card): the Hamming shortlist of the
+   +-1 form (``torch._int_mm``) must equal, rank for rank, the plain
+   popcount over the same packed words, ids included with the exact
+   per-block keep; with the capped keep a rerank follows, the distances
+   at every rank, each id a distinct row at its distance;
+   ``DistributedFlatIndex.from_bq_codes`` with a bf16 rerank copy at oversample 16 must reach
+   recall@10 >= 0.95 against the f32 ground truth (TF32 off), without a
+   copy its recall is printed; both report p50 and queued QPS. Then an
+   edge BQ collection over gRPC: BulkIndex, SearchBatch with and without
+   high_resource (recall >= 0.95), a tag-filtered Search, Flush /
+   Release / Load returning the same ids.
+6. PQ at 1,048,576 x 768 (``bench_pq.py``'s recipe: the same mixture
+   with an i^-0.5 per-dim decay): an edge PQ collection over gRPC (M=96,
+   K=256, OPQ 4, f8 cache), BulkIndex, the first search training the
+   codebook; SearchBatch high_resource (K1's bf16 loop over the f8
+   cache, a shortlist of 40, the exact-reconstruction rerank; K1's
+   (f8, bf16-wgmma) count must rise) and plain; a ``pq_cache=False``
+   store over the same codes (ADC). Each path's recall@10 against exact
+   ADC (every row reconstructed in f32, an f32 product with TF32 off)
+   must be >= 0.95; recall against the f32 ground truth is printed. K1's
+   ``edge_pq`` count is read after the edge SearchBatches alone; the
+   store-level searches after them (QPS, p50, one round of high_resource
+   and one of ADC searches under ``torch.profiler``) count their own.
+   Flush / Release / Load (the cache rebuild timed) must return the same
+   ids.
+
 Each path's launch counts are set to 0 just before it is driven and
 read just after.
 Every number printed is this run's, on the card named in phase 0. The
@@ -99,6 +126,7 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense
 SERVING_N = 1 << 20  # the store's capacity at 1M rows
 INDEX_N = 1_003_520  # the flat index's rows at 1M: padded to 4096
 OVERSAMPLE = 4
+BQ_OVERSAMPLE = 16  # the BQ index's shortlist: k x 16
 K1_EDGE_DIMS = (128, 768, 2048, 3072, 6144)  # int8 codes: any D % 128 == 0
 K2_EDGE_DIMS = (128, 768, 2048)  # K2 stops at D=2048 (its packed key)
 K1_SOURCES = {"int8-wgmma": "coltt_tpu_torch/csrc/binmax_scan.cu",
@@ -831,6 +859,303 @@ def phase_flat_index(data, recall_server, device="cuda"):
     return {"launches": launches, "k1_by_loop": by_loop, "recalls": recalls}
 
 
+# -- phases 5 and 6 ------------------------------------------------------------
+
+def _edge_server(tmp, device):
+    """A started edge server, its servicer's engine and a client on it."""
+    import grpc
+    from coltt_tpu_torch.api.client import EdgeClient
+    from coltt_tpu_torch.api.server import build_servicer, create_server
+    from coltt_tpu_torch.utils.config import Config
+
+    cfg = Config()
+    cfg.root_layer.bind_address = "127.0.0.1:0"
+    cfg.root_layer.prof_address = "127.0.0.1:0"
+    cfg.root_layer.max_recv_msg_size = 256 << 20
+    cfg.root_layer.max_send_msg_size = 256 << 20
+    cfg.storage.data_dir = os.path.join(tmp, "data")
+    cfg.storage.object_store_root = os.path.join(tmp, "objects")
+    cfg.serving.device = device
+    servicer = build_servicer("edge", cfg)
+    server = create_server(servicer, cfg)
+    server.start()
+    channel = grpc.insecure_channel(
+        f"127.0.0.1:{server.bound_port}",
+        options=[("grpc.max_send_message_length", 256 << 20),
+                 ("grpc.max_receive_message_length", 256 << 20)])
+    return server, channel, servicer.engine, EdgeClient(channel)
+
+
+def _ingest(c, name, x_host, what):
+    from coltt_tpu_torch.index.schema import CollectionSchema, FieldSchema, FieldType
+
+    n = x_host.shape[0]
+    c.create_collection(CollectionSchema(
+        name=name, dim=DIM, quantization=what,
+        fields=[FieldSchema("pk", FieldType.STRING, primary_key=True),
+                FieldSchema("tag", FieldType.STRING)]))
+    t0 = time.perf_counter()
+    for lo in range(0, n, BULK_ROWS):
+        hi = min(n, lo + BULK_ROWS)
+        c.bulk_index(name, [str(i) for i in range(lo, hi)], x_host[lo:hi],
+                     [{"tag": f"t{i % TAGS}"} for i in range(lo, hi)])
+    check(c.get_collection(name).collection_size == n, f"{name}: size after ingest")
+    log(f"[{name}] BulkIndex {n} rows: {time.perf_counter() - t0:.2f} s")
+
+
+def _batch_ids(c, name, queries, hr):
+    counts, scores, ids, _ = c.search_batch(name, queries, limit=K, high_resource=hr)
+    check(counts == [K] * len(counts), f"{name}: SearchBatch counts {set(counts)}")
+    check(all(np.isfinite(scores)), f"{name}: non-finite scores")
+    s = np.asarray(scores).reshape(len(counts), K)
+    check((s[:, :-1] >= s[:, 1:] - 1e-4).all(), f"{name}: scores not descending")
+    return np.array([int(p) for p in ids]).reshape(len(counts), K)
+
+
+def _sync_p50(fn, reps=REPS):
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def _filtered_and_reload(c, name, queries, ids_hr):
+    """A tag-filtered Search, then Flush / Release / Load: the same ids."""
+    from coltt_tpu_torch.index.filter import Filter, Op
+
+    hits = c.search(name, queries[0], limit=K, filter_expression=Filter("tag", Op.EQ, "t3"))
+    check(len(hits) == K and all(h["metadata"]["tag"] == "t3" for h in hits)
+          and all(int(h["id"]) % TAGS == 3 for h in hits),
+          f"{name}: filtered Search returned rows outside the tag")
+    t0 = time.perf_counter()
+    c.flush(name)
+    c.release_collection(name)
+    check(not c.get_collection(name).load, f"{name}: still loaded")
+    c.load_collection(name)
+    reload_s = time.perf_counter() - t0
+    again = _batch_ids(c, name, queries, True)
+    check((again == ids_hr).all(), f"{name}: SearchBatch after reload returned other ids")
+    log(f"[{name}] filtered Search ok; Flush + Release + Load {reload_s:.2f} s, "
+        f"same ids after reload")
+    return reload_s
+
+
+def phase_bq(tmp, device="cuda"):
+    """Phase 5: the BQ index and an edge BQ collection at 1M x 768."""
+    import torch
+    from coltt_tpu_torch import bench, bench_bq
+    from coltt_tpu_torch.ops import bq
+    from coltt_tpu_torch.ops.quant import Quantization
+    from coltt_tpu_torch.ops.topk import compute_recall
+    from coltt_tpu_torch.parallel.dist_search import DistributedFlatIndex
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    g, centers = bench_bq.make_centers(SEED, dev)
+    gq = torch.Generator(device=dev).manual_seed(SEED + 1)
+    queries = bench.mixture_rows(gq, centers, QUERIES, bench_bq.SIGMA)
+    q_batches = [bench.mixture_rows(gq, centers, QUERIES, bench_bq.SIGMA)
+                 for _ in range(bench_bq.DEPTH)]
+    packed, rr, truth = bench_bq.make_corpus(SERVING_N, g, centers, queries)
+    log(f"[bq] {SERVING_N} x {DIM} mixture rows made, packed ({packed.numel() * 4} "
+        f"bytes) and ground-truthed: {time.perf_counter() - t0:.2f} s")
+
+    # the +-1 form against the plain popcount over the same words: the
+    # exact keep rank for rank, ids included; the capped keep (what a
+    # rerank follows) the same distances, each id a distinct row at its
+    # stated distance (the tie group at a block's cut is not settled)
+    qp = bq.bq_encode(queries)
+    kk = K * BQ_OVERSAMPLE
+    ref_h, ref_i = bq.bq_scan_neg_topk_ref(qp, packed, None, k=kk)
+    ex_h, ex_i = bq.bq_scan_neg_topk(qp, packed, None, k=kk, exact=True)
+    check(torch.equal(ex_h, ref_h) and torch.equal(ex_i, ref_i),
+          "bq: the exact Hamming shortlist differs from the plain popcount")
+    negh, ids = bq.bq_scan_neg_topk(qp, packed, None, k=kk)
+    check(torch.equal(negh, ref_h), "bq: Hamming shortlist differs from the plain "
+          f"popcount (max {float((negh - ref_h).abs().max())})")
+    x = torch.bitwise_xor(qp[:, None, :], packed[ids.long()]).view(torch.uint8)
+    ham = sum(((x >> b) & 1).sum(dim=-1, dtype=torch.int32) for b in range(8))
+    check(torch.equal(-ham.to(torch.float32), negh), "bq: a shortlist id is not "
+          "at its stated distance")
+    check(bool((ids.sort(dim=1).values.diff(dim=1) > 0).all()),
+          "bq: a shortlist repeats a row")
+    same_ids = float((ids == ref_i).float().mean())
+    mm_ms, ex_ms, pop_ms = timed(
+        lambda: bq.bq_scan_neg_topk(qp, packed, None, k=kk),
+        lambda: bq.bq_scan_neg_topk(qp, packed, None, k=kk, exact=True),
+        lambda: bq.bq_scan_neg_topk_ref(qp, packed, None, k=kk), reps=3)
+    log(f"[bq] Hamming top-{kk}, Q={QUERIES}: +-1 form (torch._int_mm), capped keep "
+        f"{mm_ms:.3f} ms, exact keep {ex_ms:.3f} ms, plain popcount {pop_ms:.3f} ms; "
+        f"distances identical at every rank, ids identical (exact) and at rank "
+        f"{same_ids:.4f} (capped)")
+
+    records = {}
+    for name, copy in (("bf16-rerank", rr), ("no-rerank", None)):
+        idx = DistributedFlatIndex.from_bq_codes(dev, packed, dim=DIM, rr_codes=copy)
+        scores, got = idx.search(queries.cpu().numpy(), K, oversample=BQ_OVERSAMPLE)
+        check(np.isfinite(scores).all() and ((got >= 0) & (got < SERVING_N)).all(),
+              f"bq {name}: non-finite score or padding row")
+        check((scores[:, :-1] >= scores[:, 1:] - 1e-4).all(),
+              f"bq {name}: scores not descending")
+        rec = bench_bq.measure(idx, queries, truth, q_batches, BQ_OVERSAMPLE)
+        records[name] = rec
+        log(f"[bq] index {name} os{BQ_OVERSAMPLE}: {json.dumps(rec)}")
+        if dev.type == "cuda" and copy is not None:
+            prof = bench.profile_round(lambda: [
+                bench.fetch_scores_ids(*idx.search_tensors(q, K, oversample=BQ_OVERSAMPLE))
+                for q in q_batches])
+            log(f"[bq] index {name}, one round of {len(q_batches)} x {QUERIES} "
+                f"queries under torch.profiler: {json.dumps(prof)}")
+            records["profile"] = prof
+        del idx
+    check(records["bf16-rerank"]["recall_at_10"] >= 0.95,
+          f"bq: rerank recall {records['bf16-rerank']['recall_at_10']} < 0.95")
+
+    # the edge BQ collection over gRPC, on the same rows (bf16-rounded:
+    # the signs and the bf16 copy are those above)
+    x_host = rr.to(torch.float32).cpu().numpy()
+    q_host = queries.cpu().numpy()
+    del packed, rr
+    server, channel, _, c = _edge_server(tmp, device)
+    try:
+        name = "bq"
+        _ingest(c, name, x_host, Quantization.BQ)
+        t0 = time.perf_counter()
+        ids_hr = _batch_ids(c, name, q_host, True)
+        first_s = time.perf_counter() - t0
+        ids_plain = _batch_ids(c, name, q_host, False)
+        check((ids_hr == ids_plain).all(), "bq: high_resource changed a BQ search")
+        recall = compute_recall(ids_hr, truth)
+        p50 = _sync_p50(lambda: c.search_batch(name, q_host, limit=K))
+        log(f"[bq] edge SearchBatch Q={QUERIES} (os 64, bf16 rerank): recall@{K} "
+            f"{recall:.4f}, first {first_s:.2f} s (incl. encoding), p50 {p50:.1f} ms")
+        check(recall >= 0.95, f"bq: edge recall {recall} < 0.95")
+        reload_s = _filtered_and_reload(c, name, q_host, ids_hr)
+    finally:
+        channel.close()
+        server.stop(None)
+    return {"index": records, "edge_recall": recall, "edge_p50_ms": p50,
+            "reload_s": reload_s, "popcount_ms": pop_ms, "pm1_ms": mm_ms,
+            "pm1_exact_ms": ex_ms}
+
+
+def phase_pq(tmp, device="cuda"):
+    """Phase 6: an edge PQ collection at 1M x 768 and its ADC store."""
+    import torch
+    from coltt_tpu_torch import bench, bench_pq
+    from coltt_tpu_torch.ops import fused_scan as fs
+    from coltt_tpu_torch.ops.pq import pq_reconstruct
+    from coltt_tpu_torch.ops.quant import Quantization
+    from coltt_tpu_torch.ops.topk import compute_recall
+    from coltt_tpu_torch.store.flat import FlatStore, pq_cache_rows
+
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    g, centers, spectrum = bench_pq.make_centers(SEED, dev)
+    gq = torch.Generator(device=dev).manual_seed(SEED + 1)
+    queries = bench_pq.rows_of(gq, centers, spectrum, QUERIES)
+    x = bench_pq.rows_of(g, centers, spectrum, SERVING_N)
+    truth = bench.merge_truth(None, queries, x, 0)[1].cpu().numpy()
+    x_host, q_host = x.cpu().numpy(), queries.cpu().numpy()
+    del x
+    log(f"[pq] {SERVING_N} x {DIM} mixture rows (spectrum i^-0.5) made and "
+        f"ground-truthed: {time.perf_counter() - t0:.2f} s")
+
+    server, channel, engine, c = _edge_server(tmp, device)
+    try:
+        name = "pq"
+        _ingest(c, name, x_host, Quantization.PQ)
+        del x_host
+        fs.reset_launch_counts()  # this path's counts
+        loop_key = ("float8_e4m3fn", fs.LOOP_BF16)
+        t0 = time.perf_counter()
+        ids_hr = _batch_ids(c, name, q_host, True)
+        first_s = time.perf_counter() - t0
+        check(fs.binmax_scan.launches_by.get(loop_key, 0) > 0,
+              "pq: high_resource SearchBatch did not launch K1's bf16 loop on f8")
+        store = engine._collections[name].store
+        cb = store.codebook
+        check(cb is not None and cb.rotation is not None and cb.m == 96
+              and cb.n_centroids == 256, "pq: codebook not trained as configured")
+        log(f"[pq] first SearchBatch (trains M=96 K=256 OPQ 4 on the first sync, "
+            f"encodes {SERVING_N} rows, builds the f8 cache): {first_s:.2f} s")
+        ids_plain = _batch_ids(c, name, q_host, False)
+        p50 = {hr: _sync_p50(lambda: c.search_batch(name, q_host, limit=K,
+                                                      high_resource=hr))
+               for hr in (True, False)}
+        # the edge path's counts: the SearchBatches above and nothing else
+        k1_by = dict(fs.binmax_scan.launches_by)
+        launches = fs.binmax_scan.launches
+
+        # the yardstick: exact ADC, every row reconstructed in f32
+        qr = cb.rotate(queries)
+        qn = torch.nn.functional.normalize(qr, dim=1)
+        best = None
+        for lo in range(0, SERVING_N, 1 << 17):
+            rec = pq_reconstruct(store.pqcodes[lo:min(SERVING_N, lo + (1 << 17))], cb)
+            v, i = torch.topk(qn @ torch.nn.functional.normalize(rec, dim=1).t(), K, dim=1)
+            i = i + lo
+            if best is not None:
+                v, sel = torch.topk(torch.cat([best[0], v], 1), K, dim=1)
+                i = torch.gather(torch.cat([best[1], i], 1), 1, sel)
+            best = (v, i)
+        adc_truth = best[1].cpu().numpy()
+
+        adc_store = FlatStore.adopt_pq(cb, store.pqcodes[:SERVING_N], pq_cache=False,
+                                       device=dev)
+        _, ids_adc = adc_store.search(q_host, K)
+        recalls = {}
+        for what, ids in (("high_resource (K1 f8 + rerank)", ids_hr),
+                          ("plain (f8 scan + rerank)", ids_plain),
+                          ("ADC (pq_cache=False)", ids_adc)):
+            r_adc, r_f32 = compute_recall(ids, adc_truth), compute_recall(ids, truth)
+            recalls[what] = {"vs_exact_adc": r_adc, "vs_f32": r_f32}
+            log(f"[pq] {what}: recall@{K} vs exact ADC {r_adc:.4f}, vs f32 {r_f32:.4f}")
+            check(r_adc >= 0.95, f"pq {what}: recall vs exact ADC {r_adc} < 0.95")
+
+        # the store-level searches below count their own K1 launches
+        fs.reset_launch_counts()
+        q_batches = [bench_pq.rows_of(gq, centers, spectrum, QUERIES).cpu().numpy()
+                     for _ in range(bench_pq.DEPTH)]
+        store_qps = {
+            "f8cache K1": bench_pq._public(bench_pq.measure(
+                store, q_host, adc_truth, q_batches, fused=True, oversample=OVERSAMPLE)),
+            "adc": bench_pq._public(bench_pq.measure(adc_store, q_host, adc_truth,
+                                                     q_batches))}
+        log(f"[pq] edge SearchBatch Q={QUERIES} p50: high_resource {p50[True]:.1f} "
+            f"ms, plain {p50[False]:.1f} ms; store searches (recall vs exact ADC): "
+            f"{json.dumps(store_qps)}")
+        prof = None
+        if dev.type == "cuda":
+            prof = {"f8cache K1": bench.profile_round(lambda: [
+                        store.search(q, K, fused=True, oversample=OVERSAMPLE)
+                        for q in q_batches]),
+                    "adc": bench.profile_round(lambda: [
+                        adc_store.search(q, K) for q in q_batches[:2]])}
+            log(f"[pq] one round of {len(q_batches)} high_resource store searches and "
+                f"one of 2 ADC store searches (Q={QUERIES}) under torch.profiler: "
+                f"{json.dumps(prof)}")
+            torch.cuda.synchronize()
+        store_launches = fs.binmax_scan.launches
+        del adc_store
+        t0 = time.perf_counter()
+        pq_cache_rows(store.pqcodes, cb)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rebuild_s = time.perf_counter() - t0
+        log(f"[pq] f8 cache rebuild of {SERVING_N} rows: {rebuild_s:.3f} s")
+        del store
+        reload_s = _filtered_and_reload(c, name, q_host, ids_hr)
+    finally:
+        channel.close()
+        server.stop(None)
+    return {"recalls": recalls, "p50_ms": p50, "store": store_qps, "profile": prof,
+            "rebuild_s": rebuild_s, "reload_s": reload_s, "k1_by_loop": k1_by,
+            "k1_launches": launches, "k1_launches_store_searches": store_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -859,6 +1184,9 @@ def main() -> int:
         data = make_data()
         run = phase_server(tmp, data)
         index_run = phase_flat_index(data, run["recall_k1"])
+        del data
+        bq_run = phase_bq(os.path.join(tmp, "bq"))
+        pq_run = phase_pq(os.path.join(tmp, "pq"))
     except Exception:  # noqa: BLE001 — any failure fails the smoke
         traceback.print_exc()
         return 1
@@ -869,7 +1197,8 @@ def main() -> int:
     for rec in k1_records:
         key = (rec["codes"], rec["loop"])
         rec["launches_by_path"] = {"edge_server": run["k1_by_loop"].get(key, 0),
-                                   "flat_index": index_run["k1_by_loop"].get(key, 0)}
+                                   "flat_index": index_run["k1_by_loop"].get(key, 0),
+                                   "edge_pq": pq_run["k1_by_loop"].get(key, 0)}
         rec["launches"] = rec["launches_by_path"]["flat_index"]
     top = next(r for r in k1_records if r["loop"] == "int8-wgmma" and r["q"] == QUERIES)
     kernels = [{
@@ -879,7 +1208,8 @@ def main() -> int:
         "replaces": "coltt_tpu/ops/scan_pallas.py:126",
         "launches": index_run["launches"]["K1"],
         "launches_by_path": {"edge_server": run["launches"]["K1"],
-                             "flat_index": index_run["launches"]["K1"]},
+                             "flat_index": index_run["launches"]["K1"],
+                             "edge_pq": pq_run["k1_launches"]},
         **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                "bound_ms", "bound_by", "share_of_bound")},
         "loops": k1_records,
@@ -893,6 +1223,8 @@ def main() -> int:
                              "flat_index": index_run["launches"]["K2"]},
         **k2_record,
     }]
+    log(json.dumps({"bq": bq_run, "pq": {k: v for k, v in pq_run.items()
+                                          if k != "k1_by_loop"}}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -268,6 +268,7 @@ def build_servicer(mode: str, cfg: Config):
             device=cfg.serving.device,
             batch_max=cfg.serving.scan_batch_max,
             batch_wait_s=cfg.serving.scan_batch_wait_ms / 1e3,
+            pq_opq_iters=cfg.serving.pq_opq_iters,
             warmup_batches=tuple(
                 int(b) for b in cfg.serving.precompile_batches.split(",")
                 if b.strip()

@@ -72,24 +72,13 @@ def build_index(vectors, device, *, unit_i8: bool) -> DistributedFlatIndex:
     )
 
 
-def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
-        rng: np.random.Generator, *, batch: int = BATCH, depth: int = DEPTH,
-        warm: int = WARM, rounds: int = ROUNDS,
-        recall_queries: int = RECALL_QUERIES) -> dict:
-    """Time the flagship search of ``idx`` (or of any other index, through
-    the same fused search) and score its recall against the exact
-    ``gt_idx``; returns the bench's record (without the card). Queries
-    come from ``rng``."""
-    dim, device = idx.dim, idx.device
-
-    def dispatch(q):
-        return idx.search_tensors(q, K, oversample=OVERSAMPLE, fused=True,
-                                  final=FINAL)
-
-    q_batches = [
-        torch.from_numpy(rng.standard_normal((batch, dim), dtype=np.float32))
-        .to(device) for _ in range(depth)
-    ]
+def time_dispatch(dispatch, q_batches, *, warm: int = WARM, rounds: int = ROUNDS):
+    """Time ``dispatch(queries) -> (scores, ids)`` (device tensors, not
+    waited for) over ``q_batches``: ``(warm-up s, p50 ms of synchronous
+    batches, queued QPS, the QPS of each round)``. A round queues every
+    batch, then fetches every result; QPS is the median over ``rounds``
+    after ``warm`` discarded rounds."""
+    depth, batch = len(q_batches), q_batches[0].shape[0]
     t0 = time.perf_counter()
     fetch_scores_ids(*dispatch(q_batches[0]))
     warmup_s = time.perf_counter() - t0
@@ -113,6 +102,61 @@ def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
     qps = float(np.median(qps_rounds))
     log(f"p50 sync batch latency {p50_ms:.2f} ms; queued QPS median of "
         f"{rounds}: {qps:.0f} (rounds {[round(x) for x in qps_rounds]})")
+    return warmup_s, p50_ms, qps, qps_rounds
+
+
+def mixture_rows(gen: torch.Generator, centers: torch.Tensor, n: int,
+                 sigma: float, spectrum=None) -> torch.Tensor:
+    """``n`` rows of a cluster mixture on ``gen``'s device: a uniformly
+    drawn centre plus ``sigma`` times gaussian noise (scaled per dim by
+    ``spectrum`` when given). The corpus recipe of the JAX package's
+    ``bench_bq.py`` and ``bench_pq.py``: on i.i.d. gaussian rows, whose
+    nearest neighbours are barely nearer than the rest, sign and product
+    codes rank noise for any implementation."""
+    asg = torch.randint(0, centers.shape[0], (n,), generator=gen, device=gen.device)
+    noise = torch.randn((n, centers.shape[1]), generator=gen, device=gen.device)
+    if spectrum is not None:
+        noise = noise * spectrum
+    return centers[asg] + sigma * noise
+
+
+def merge_truth(best, queries: torch.Tensor, rows: torch.Tensor, offset: int,
+                k: int = K):
+    """Fold a slab of rows (global ids from ``offset``) into a running
+    exact f32 cosine top-k of ``queries`` (``best = (values, ids)`` or
+    None); the product runs in f32 (TF32 off on the card)."""
+    qn = torch.nn.functional.normalize(queries, dim=1)
+    for lo in range(0, rows.shape[0], 1 << 17):
+        xb = torch.nn.functional.normalize(rows[lo:lo + (1 << 17)], dim=1)
+        v, i = torch.topk(qn @ xb.t(), k, dim=1)
+        i = i + offset + lo
+        if best is not None:
+            v, sel = torch.topk(torch.cat([best[0], v], 1), k, dim=1)
+            i = torch.gather(torch.cat([best[1], i], 1), 1, sel)
+        best = (v, i)
+    return best
+
+
+def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
+        rng: np.random.Generator, *, batch: int = BATCH, depth: int = DEPTH,
+        warm: int = WARM, rounds: int = ROUNDS,
+        recall_queries: int = RECALL_QUERIES) -> dict:
+    """Time the flagship search of ``idx`` (or of any other index, through
+    the same fused search) and score its recall against the exact
+    ``gt_idx``; returns the bench's record (without the card). Queries
+    come from ``rng``."""
+    dim, device = idx.dim, idx.device
+
+    def dispatch(q):
+        return idx.search_tensors(q, K, oversample=OVERSAMPLE, fused=True,
+                                  final=FINAL)
+
+    q_batches = [
+        torch.from_numpy(rng.standard_normal((batch, dim), dtype=np.float32))
+        .to(device) for _ in range(depth)
+    ]
+    warmup_s, p50_ms, qps, qps_rounds = time_dispatch(
+        dispatch, q_batches, warm=warm, rounds=rounds)
 
     gq = rng.standard_normal((recall_queries, dim), dtype=np.float32)
     got, truth = [], []
@@ -145,25 +189,18 @@ def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
     }
 
 
-def device_profile(idx: DistributedFlatIndex, rng: np.random.Generator) -> dict:
-    """One queued round of the flagship search under ``torch.profiler``:
-    wall ms (host clock), device-busy ms (the union of the kernels' and
-    copies' device intervals), idle share, and device ms of the costliest
-    kernels by name. Needs a CUDA index."""
+def profile_round(run) -> dict:
+    """``run()`` once under ``torch.profiler``: wall ms (host clock),
+    device-busy ms (the union of the kernels' and copies' device
+    intervals), idle share, and device ms of the costliest kernels by
+    name. Needs a CUDA device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    q_batches = [
-        torch.from_numpy(rng.standard_normal((BATCH, idx.dim), dtype=np.float32))
-        .to(idx.device) for _ in range(DEPTH)
-    ]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        outs = [idx.search_tensors(q, K, oversample=OVERSAMPLE, fused=True,
-                                   final=FINAL) for q in q_batches]
-        for out in outs:
-            fetch_scores_ids(*out)
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
@@ -174,13 +211,30 @@ def device_profile(idx: DistributedFlatIndex, rng: np.random.Generator) -> dict:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
         by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
         "wall_ms": round(wall_ms, 3),
         "device_busy_ms": round(busy_us / 1e3, 3),
         "device_idle_share": round(max(0.0, 1.0 - busy_us / 1e3 / wall_ms), 4),
         "device_ms_by_kernel": {name[:80]: round(us / 1e3, 3) for name, us in top},
     }
+
+
+def device_profile(idx: DistributedFlatIndex, rng: np.random.Generator) -> dict:
+    """One queued round of the flagship search under ``torch.profiler``
+    (:func:`profile_round`). Needs a CUDA index."""
+    q_batches = [
+        torch.from_numpy(rng.standard_normal((BATCH, idx.dim), dtype=np.float32))
+        .to(idx.device) for _ in range(DEPTH)
+    ]
+
+    def run():
+        outs = [idx.search_tensors(q, K, oversample=OVERSAMPLE, fused=True,
+                                   final=FINAL) for q in q_batches]
+        for out in outs:
+            fetch_scores_ids(*out)
+
+    return profile_round(run)
 
 
 def smi_line() -> str:

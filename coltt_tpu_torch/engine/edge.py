@@ -12,7 +12,11 @@ The checkpoint objects are byte-compatible with the JAX package's, so
 either engine loads what the other flushed. Every collection's tensors live
 on the engine's ``device``. ``high_resource_avaliable`` (the reference's
 highCpu toggle) selects the fused scan kernel where the store's shape
-supports it; the default scan is the plain exact one.
+supports it; the default scan is the plain exact one. BQ collections scan
+their packed sign bits and rerank; PQ collections train their codebook
+(with OPQ, ``pq_opq_iters`` rounds) on the first synced batch and serve
+from the f8 reconstruction cache with a k x 4 shortlist reranked against
+the exact reconstruction.
 """
 
 from __future__ import annotations
@@ -68,9 +72,12 @@ class EdgeEngine:
         device="cuda",
         batch_max: int = 2048,
         batch_wait_s: float = 0.002,
+        pq_opq_iters: int = 4,
         warmup_batches=(1, 8, 64),
     ):
         self.device = torch.device(device)
+        # OPQ rounds of a PQ collection's training ([serving].pq_opq_iters)
+        self._pq_opq_iters = int(pq_opq_iters)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -114,6 +121,7 @@ class EdgeEngine:
                     metric=schema.metric,
                     quantization=schema.quantization,
                     device=self.device,
+                    pq_opq_iters=self._pq_opq_iters,
                 ),
                 inverted=InvertedIndex(fields=[f.name for f in schema.fields]),
             )
@@ -220,7 +228,8 @@ class EdgeEngine:
         for q in self._warmup_batches:
             probe = np.ones((q, col.schema.dim), np.float32)
             for hr in (False, True):
-                col.store.search(probe, k=10, fused=hr)
+                col.store.search(probe, k=10, fused=hr,
+                                 oversample=self._oversample(col))
         log.info(
             "warmed up serving shapes",
             extra={"kv": {
@@ -287,19 +296,27 @@ class EdgeEngine:
             return len(slots)
 
     # -- search ------------------------------------------------------------------
+    @staticmethod
+    def _oversample(col: _EdgeCollection) -> int:
+        """PQ-cache collections always rerank a k x 4 shortlist against the
+        exact reconstruction (cheap; removes the cache's f8 noise)."""
+        return 4 if (col.store.is_pq and col.store.pq_cache) else 1
+
     def _scan(self, name: str, col: _EdgeCollection, queries, k: int,
               candidates, high_resource: bool):
         """One store scan, coalesced with concurrent unfiltered searches on
         the same store when the batcher is on."""
+        os_ = self._oversample(col)
         if candidates is None and self._batcher is not None:
             def scan_fn(q, kk):
-                return col.store.search(q, k=kk, fused=high_resource)
+                return col.store.search(q, k=kk, fused=high_resource,
+                                        oversample=os_)
 
             return self._batcher.run(
                 (name, id(col.store), bool(high_resource)), scan_fn, queries, k,
             )
         return col.store.search(queries, k=k, candidates=candidates,
-                                fused=high_resource)
+                                fused=high_resource, oversample=os_)
 
     def _candidates(self, col: _EdgeCollection, filter_expression):
         if filter_expression is None:

@@ -61,10 +61,7 @@ def storage_dtype(q: Quantization) -> torch.dtype:
     """dtype used for the stored codes of a quantization scheme."""
     q = Quantization.parse(q)
     if q not in _STORAGE_DTYPES:
-        raise NotImplementedError(
-            f"quantization {q.name} is not ported yet (ROADMAP Queue 1, "
-            f"{q.name})"
-        )
+        raise ValueError(f"quantization {q.name} has no dense storage dtype")
     return _STORAGE_DTYPES[q]
 
 
@@ -89,10 +86,8 @@ def quantize(x: torch.Tensor, q: Quantization):
         if q == Quantization.F8:
             return (x / scale).to(torch.float8_e4m3fn), scale
         return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
-    raise NotImplementedError(
-        f"quantization {q.name} is not a dense codec and is not ported yet "
-        f"(ROADMAP Queue 1, {q.name})"
-    )
+    raise ValueError(
+        f"quantization {q.name} is not a dense codec (ops.pq / ops.bq encode it)")
 
 
 def dequantize(codes: torch.Tensor, scale=None) -> torch.Tensor:

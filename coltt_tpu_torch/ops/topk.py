@@ -40,8 +40,60 @@ def _block_rows(n: int, q: int, row_bytes: int, device: torch.device) -> int:
     return max(_MIN_BLOCK, budget // per_row) if per_row * n > budget else n
 
 
-def _select_topk(neg, k):
-    return torch.topk(neg, k, dim=1, largest=True, sorted=True)
+# rows at most this wide are ranked by one stable sort; wider ones by
+# torch.topk, then the tie group at the k-th rank settled
+_SORT_WIDTH = 4096
+
+
+def stable_topk(values: torch.Tensor, k: int, *, exact: bool = True):
+    """Top-k of ``values [Q, N]`` (f32 or int32) along dim 1, largest
+    first, equal values ranking the lower position first: ``lax.top_k``'s
+    order, which ``torch.topk`` does not promise. Returns ``(values [Q,
+    k], positions [Q, k] int64)``.
+
+    Narrow rows take one stable sort. Wide ones take ``torch.topk`` of
+    k + 1; a row whose (k+1)-th value equals its k-th has a tie group
+    crossing the cut (rare for f32 distances) and keeps that group's
+    lowest positions (:func:`_lowest_at_cut`), which costs one host sync.
+    ``exact=False`` skips that step, as the reference's ``approx_max_k``
+    may: the values at every rank are the same, the members of a group cut
+    by k may not be."""
+    n = values.shape[1]
+    if n <= _SORT_WIDTH:
+        v, pos = torch.sort(values, dim=1, descending=True, stable=True)
+        return v[:, :k], pos[:, :k]
+    if not exact or k == n:
+        v, pos = torch.topk(values, k, dim=1, largest=True, sorted=True)
+    else:
+        v, pos = torch.topk(values, k + 1, dim=1, largest=True, sorted=True)
+        cut = torch.nonzero(v[:, k] == v[:, k - 1]).flatten()
+        v, pos = v[:, :k], pos[:, :k]
+        if cut.numel():
+            v[cut], pos[cut] = _lowest_at_cut(values[cut], v[cut], pos[cut], k)
+    # equal values by the lower position: order by position, then stably
+    # by value
+    order = torch.argsort(pos, dim=1)
+    v, pos = torch.gather(v, 1, order), torch.gather(pos, 1, order)
+    order = torch.sort(v, dim=1, descending=True, stable=True).indices
+    return torch.gather(v, 1, order), torch.gather(pos, 1, order)
+
+
+def _lowest_at_cut(values, v, pos, k: int):
+    """For rows whose tie group at the k-th value crosses the cut: keep
+    ``torch.topk``'s members above that value, then fill with the group's
+    lowest positions. Returns ``(v, pos) [R, k]``, unordered."""
+    kth = v[:, -1:]
+    above = v > kth          # every row above the k-th value is among these
+    need = k - above.sum(dim=1, keepdim=True)
+    n = values.shape[1]
+    rev = torch.arange(n, 0, -1, dtype=torch.int32, device=values.device)
+    tie = torch.topk(torch.where(values == kth, rev, 0), k, dim=1).values
+    cand_pos = torch.cat([pos, (n - tie).to(pos.dtype)], dim=1)
+    cand_v = torch.cat([v, kth.expand(-1, k)], dim=1)
+    col = torch.arange(k, device=values.device)
+    keep = torch.cat([above, col[None, :] < need], dim=1)   # k per row
+    sel = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices[:, :k]
+    return torch.gather(cand_v, 1, sel), torch.gather(cand_pos, 1, sel)
 
 
 def scan_neg_topk(
@@ -60,8 +112,10 @@ def scan_neg_topk(
 
     Ranks on negated distance, not the 0-100 score (the euclidean score
     clips at 0 and would tie all far rows). ``block_rows=None`` sizes the
-    blocks from the free memory of ``codes``' device. Ties break as
-    ``torch.topk`` breaks them.
+    blocks from the free memory of ``codes``' device. Equal distances rank
+    the lower row id first, as in the reference (:func:`stable_topk`),
+    except that a tie group crossing a block's k-th rank may keep other
+    members than the reference's.
     """
     metric = Metric.parse(metric)
     queries = torch.as_tensor(queries, dtype=torch.float32, device=codes.device)
@@ -84,15 +138,17 @@ def scan_neg_topk(
             metric=metric,
             compute_dtype=compute_dtype,
         )
-        v, i = _select_topk(-dist, min(kk, stop - start))
+        # the block's own tie group at its cut is left unsettled: f32
+        # distances of distinct rows rarely tie there, and settling it
+        # costs a host sync a block (+10% on a plain SearchBatch)
+        v, i = stable_topk(-dist, min(kk, stop - start), exact=False)
         vals.append(v)
         ids.append(i + start)
     if len(vals) == 1:
         return vals[0], ids[0].to(torch.int32)
-    vals = torch.cat(vals, dim=1)
-    ids = torch.cat(ids, dim=1)
-    negd, sel = _select_topk(vals, kk)
-    return negd, torch.gather(ids, 1, sel).to(torch.int32)
+    # block-major partials: equal values keep the lower block first
+    negd, sel = stable_topk(torch.cat(vals, dim=1), kk)
+    return negd, torch.gather(torch.cat(ids, dim=1), 1, sel).to(torch.int32)
 
 
 def scan_topk(
@@ -118,6 +174,21 @@ def scan_topk(
     return scores_from_negd(negd, metric), idx
 
 
+def fit_rows(n: int, per_row_bytes: int, device: torch.device) -> int:
+    """Rows (or queries) per block, at most ``n``, whose transients of
+    ``per_row_bytes`` each fit a quarter of the free device memory (the
+    fixed CPU budget on a CPU tensor). Work within the CPU budget goes in
+    one block on any device, without asking the device."""
+    if n * per_row_bytes <= _CPU_BUDGET:
+        return max(1, n)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        budget = free // _FREE_SHARE
+    else:
+        budget = _CPU_BUDGET
+    return max(1, min(n, budget // max(1, per_row_bytes)))
+
+
 def rerank_neg_topk(
     queries,
     negd,
@@ -127,21 +198,38 @@ def rerank_neg_topk(
     k: int,
     metric: Metric = Metric.COSINE,
     compute_dtype=torch.bfloat16,
+    rr_scale=None,
 ):
     """Re-score shortlisted candidates against a higher-precision copy.
 
     ``negd / ids [Q, C]`` come from a (possibly approximate, low-bit)
-    scan; ``rr_codes [N, D]`` is the rerank copy (e.g. bf16 rows; every
-    caller of the reference passes no per-row scale, so the port takes
-    none). A ``[Q, C, D]`` gather feeds :func:`rescore_topk`. Returns ``(negdist [Q, k], ids [Q, k])``
-    on the rerank precision.
+    scan; ``rr_codes [N, D]`` is the rerank copy (e.g. bf16 rows), with an
+    optional per-row ``rr_scale [N, 1]`` (an f8 copy's). A ``[Q, C, D]``
+    gather feeds :func:`rescore_topk`, blocked over queries
+    (:func:`fit_rows`; each query's rerank is independent, so the blocks
+    change no result): at Q=2048, C=640, D=768 one bf16 gather alone is
+    2 GB. Returns ``(negdist [Q, k], ids [Q, k])`` on the rerank
+    precision.
     """
     metric = Metric.parse(metric)
     queries = torch.as_tensor(queries, dtype=torch.float32, device=rr_codes.device)
-    safe = ids.clamp(min=0).long()
-    cand = rr_codes[safe]                                   # [Q, C, D]
-    return rescore_topk(queries, cand, negd, ids, k=k, metric=metric,
-                        compute_dtype=compute_dtype)
+    q, c = ids.shape
+    d = rr_codes.shape[1]
+    # the gather, its f32 widening, its compute-dtype copy and the product
+    per_query = c * d * (rr_codes.element_size() + 12)
+    qb = fit_rows(q, per_query, rr_codes.device)
+    outs = []
+    for s in range(0, q, qb):
+        safe = ids[s:s + qb].clamp(min=0).long()
+        cand = rr_codes[safe]                               # [qb, C, D]
+        if rr_scale is not None:
+            cand = cand.to(torch.float32) * rr_scale[safe]
+        outs.append(rescore_topk(queries[s:s + qb], cand, negd[s:s + qb],
+                                 ids[s:s + qb], k=k, metric=metric,
+                                 compute_dtype=compute_dtype))
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 def rescore_topk(
@@ -178,7 +266,7 @@ def rescore_topk(
         dist = (qsq + csq - 2.0 * dots).clamp(min=0.0)
     dist = torch.where(torch.isfinite(negd), dist, float("inf"))
     kk = min(k, dist.shape[1])
-    rneg, sel = torch.topk(-dist, kk, dim=1, largest=True, sorted=True)
+    rneg, sel = stable_topk(-dist, kk)
     return rneg, torch.gather(ids, 1, sel)
 
 

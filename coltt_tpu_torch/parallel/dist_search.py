@@ -10,24 +10,29 @@ never returned), and searched through
   followed by a rerank of a ``k * oversample`` shortlist against a
   high-precision copy (``rr_codes``);
 - :func:`sharded_unit_i8_topk`: the unit-norm int8 path (K2), whose
-  shortlist is masked against ``valid`` and then reranked.
+  shortlist is masked against ``valid`` and then reranked;
+- :func:`sharded_bq_topk`: the Hamming shortlist over packed sign words,
+  then a rerank against the high-precision copy when there is one;
+- :func:`sharded_pq_topk`: the ADC scan over PQ codes
+  (:class:`DistributedPQIndex`).
 
 The JAX ``mesh`` argument becomes a ``torch.device``. Only the
 single-device branches are ported: a sequence of several devices (the
-``shard_map`` branches and their ``_merge_partials``) raises, as do BQ,
-PQ and CFLAT search (ROADMAP Queue 1 items 8, 9, 10 and 12). The plain
-scan's selection is exact: the reference's ``approx_recall`` is
+``shard_map`` branches and their ``_merge_partials``) raises, as does
+CFLAT search (ROADMAP Queue 1 items 10 and 12). The plain scan's
+selection is exact: the reference's ``approx_recall`` is
 ``lax.approx_max_k``, which is an exact top-k on the CPU where the
 reference is checked, so the port takes no such knob.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from coltt_tpu_torch.ops.bq import bq_encode, bq_scan_neg_topk, hamming_to_neg_cos_dist
 from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.fused_scan import (
     _CHUNK,
@@ -38,6 +43,13 @@ from coltt_tpu_torch.ops.fused_scan import (
     unit_i8_supports,
 )
 from coltt_tpu_torch.ops.fused_scan import supports as fused_supports
+from coltt_tpu_torch.ops.pq import (
+    PQCodebook,
+    pq_encode,
+    pq_rerank_neg_topk,
+    pq_scan_neg_topk,
+    train_pq,
+)
 from coltt_tpu_torch.ops.quant import Quantization, dequantize, quantize
 from coltt_tpu_torch.ops.topk import (
     fetch_scores_ids,
@@ -61,8 +73,8 @@ def _one_device(device) -> torch.device:
     return torch.device(device)
 
 
-def _scan(queries, codes, scale, sqnorm, valid, *, k, metric, compute_dtype,
-          fused=False, final="auto"):
+def shortlist_scan(queries, codes, scale, sqnorm, valid, *, k, metric,
+                   compute_dtype, fused=False, final="auto"):
     """One scan: K1's fused scan, or the plain blocked scan when ``fused``
     is off or the kernel's shape rules do not hold."""
     if fused and fused_supports(codes.shape[0], codes.shape[1], metric,
@@ -99,20 +111,31 @@ def sharded_scan_topk(
 
     ``rr_codes`` enables the rerank: the scan shortlists
     ``k * oversample`` rows, which are re-scored against ``rr_codes``.
+    ``pq_rerank = (pqcodes, centroids, coarse)`` (exclusive with
+    ``rr_codes``) is the PQ-cache serving shape instead: the shortlist
+    from the f8 reconstruction cache in ``codes`` is re-scored against the
+    exact reconstruction of its code rows (queries already rotated).
     ``fused=True`` scans through K1 (``ops/fused_scan.py``) where its
     shape rules hold.
     """
     _one_device(device)
     metric = Metric.parse(metric)
-    if pq_rerank is not None:
-        _not_ported("the PQ-cache rerank", "item 9, PQ")
+    if pq_rerank is not None and rr_codes is not None:
+        raise ValueError("pq_rerank and rr_codes are mutually exclusive")
     kw = dict(metric=metric, compute_dtype=compute_dtype, fused=fused,
               final=final)
-    if rr_codes is None:
-        negd, ids = _scan(queries, codes, scale, sqnorm, valid, k=k, **kw)
+    if rr_codes is None and pq_rerank is None:
+        negd, ids = shortlist_scan(queries, codes, scale, sqnorm, valid, k=k, **kw)
+        return scores_from_negd(negd, metric), ids
+    shortlist = min(max(k * oversample, k), codes.shape[0])
+    negd, ids = shortlist_scan(queries, codes, scale, sqnorm, valid, k=shortlist, **kw)
+    if pq_rerank is not None:
+        pqcodes, centroids, coarse = pq_rerank
+        negd, ids = pq_rerank_neg_topk(
+            queries, negd, ids, pqcodes, centroids,
+            k=min(k, negd.shape[1]), metric=metric, coarse=coarse,
+        )
     else:
-        shortlist = min(max(k * oversample, k), codes.shape[0])
-        negd, ids = _scan(queries, codes, scale, sqnorm, valid, k=shortlist, **kw)
         negd, ids = rerank_neg_topk(
             queries, negd, ids, rr_codes,
             k=k, metric=metric, compute_dtype=compute_dtype,
@@ -158,14 +181,63 @@ def sharded_unit_i8_topk(
     return scores_from_negd(negd, Metric.COSINE), ids
 
 
-def sharded_bq_topk(*args, **kwargs):
-    """Cosine top-k over binary (BQ) codes: not ported yet."""
-    _not_ported("sharded_bq_topk", "item 8, BQ")
+def sharded_bq_topk(
+    device,
+    codes,
+    valid,
+    rr_codes,
+    queries,
+    *,
+    k: int,
+    oversample: int = 8,
+    dim: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cosine top-k over binary (BQ) codes on ``device``: queries are
+    sign-packed once, a Hamming shortlist of ``k * oversample`` rows is
+    taken, then reranked against ``rr_codes`` (bf16 operands) when there
+    is a copy. Without one the Hamming values are the final ranking: the
+    selection is exact per block and the score is the angle estimate.
+    Returns ``(scores [Q, k] 0-100, ids [Q, k])``."""
+    _one_device(device)
+    queries = torch.as_tensor(queries, dtype=torch.float32, device=codes.device)
+    shortlist = min(max(k * oversample, k), codes.shape[0])
+    negh, ids = bq_scan_neg_topk(bq_encode(queries), codes, valid, k=shortlist,
+                                 exact=rr_codes is None)
+    kk = min(k, negh.shape[1])
+    if rr_codes is not None:
+        negd, ids = rerank_neg_topk(
+            queries, negh, ids, rr_codes, k=kk, metric=Metric.COSINE,
+            compute_dtype=torch.bfloat16,
+        )
+    else:
+        negd, ids = hamming_to_neg_cos_dist(negh[:, :kk], dim), ids[:, :kk]
+    return scores_from_negd(negd, Metric.COSINE), ids
 
 
-def sharded_pq_topk(*args, **kwargs):
-    """Top-k over PQ codes: not ported yet."""
-    _not_ported("sharded_pq_topk", "item 9, PQ")
+def sharded_pq_topk(
+    device,
+    codes,
+    centroids,
+    sqnorm,
+    valid,
+    queries,
+    *,
+    k: int,
+    metric: Metric = Metric.COSINE,
+    compute_dtype=torch.bfloat16,
+    rotation=None,
+    coarse=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k over PQ codes on ``device`` (the blocked ADC scan); the OPQ
+    ``rotation`` is applied to the queries once. Returns ``(scores [Q, k]
+    0-100, ids [Q, k])``."""
+    _one_device(device)
+    metric = Metric.parse(metric)
+    negd, ids = pq_scan_neg_topk(
+        queries, codes, centroids, sqnorm, valid, k=k, metric=metric,
+        compute_dtype=compute_dtype, rotation=rotation, coarse=coarse,
+    )
+    return scores_from_negd(negd, metric), ids
 
 
 def sharded_cflat_topk(*args, **kwargs):
@@ -178,10 +250,12 @@ class DistributedFlatIndex:
     Ingest quantizes once; :meth:`search` runs the scans above. Mutable
     serving uses ``store/flat.py``'s FlatStore.
 
-    ``quantization`` is NONE or a dense codec (F16, BF16, F8, I8);
-    ``rerank_dtype`` (e.g. ``torch.bfloat16``) keeps a high-precision copy
-    for the rerank; ``unit_i8=True`` stores unit-norm rows under one
-    global int8 scale for K2 (cosine only, needs ``rerank_dtype``).
+    ``quantization`` is NONE, a dense codec (F16, BF16, F8, I8) or BQ
+    (packed sign words, cosine only; :meth:`from_bq_codes` adopts words
+    packed elsewhere); ``rerank_dtype`` (e.g. ``torch.bfloat16``) keeps a
+    high-precision copy for the rerank; ``unit_i8=True`` stores unit-norm
+    rows under one global int8 scale for K2 (cosine only, needs
+    ``rerank_dtype``).
     """
 
     def __init__(
@@ -203,8 +277,8 @@ class DistributedFlatIndex:
             raise ValueError(
                 "unit_i8 needs metric=cosine, dim % 128 == 0, dim <= 2048, "
                 "and a rerank_dtype")
-        if self.quantization == Quantization.BQ:
-            _not_ported("the BQ flat index", "item 8, BQ")
+        if self.quantization == Quantization.BQ and self.metric != Metric.COSINE:
+            raise ValueError("BQ is cosine-only")
         vectors = torch.as_tensor(vectors, dtype=torch.float32).to(self.device)
         # pad to a multiple of the fused kernels' largest chunk; padding
         # rows are masked invalid and never returned
@@ -216,7 +290,12 @@ class DistributedFlatIndex:
         valid = torch.arange(vectors.shape[0], device=self.device) < n
 
         self.gscale = self.bin_live = None
-        if self.unit_i8:
+        if self.quantization == Quantization.BQ:
+            # [N, ceil(D/32)] sign words; padding rows are zero words
+            # masked by ``valid``
+            self.codes = bq_encode(vectors)
+            self.scale = self.sqnorm = None
+        elif self.unit_i8:
             # unit-norm rows, ONE global scale: ranking is the raw int dot
             norms = torch.linalg.vector_norm(vectors, dim=1, keepdim=True)
             un = vectors / norms.clamp(min=1e-30)
@@ -253,9 +332,37 @@ class DistributedFlatIndex:
         self.unit_i8 = bool(unit_i8)
 
     @classmethod
-    def from_bq_codes(cls, *args, **kwargs):
-        """A BQ index from pre-packed sign codes: not ported yet."""
-        _not_ported("DistributedFlatIndex.from_bq_codes", "item 8, BQ")
+    def from_bq_codes(
+        cls,
+        device,
+        packed,
+        *,
+        dim: int,
+        rr_codes=None,
+        rerank_dtype=torch.bfloat16,
+    ) -> "DistributedFlatIndex":
+        """A BQ index from pre-packed sign words ``[N, ceil(dim/32)]``
+        (numpy uint32 / int32 or a tensor): the ingest path for corpora
+        packed slab by slab with ``bq_encode``. ``rr_codes [N, dim]`` (any
+        float numpy array or tensor) becomes the ``rerank_dtype`` copy.
+        Rows are padded to a multiple of 4096, masked invalid."""
+        self = cls.__new__(cls)
+        self._configure(device, Metric.COSINE, Quantization.BQ, torch.bfloat16,
+                        rerank_dtype if rr_codes is not None else None, False)
+        if not torch.is_tensor(packed):
+            packed = torch.from_numpy(np.array(packed).view(np.int32))
+        n, w = packed.shape
+        self.n, self.dim = n, dim
+        pad = (-n) % (2 * _CHUNK)
+        self.codes = torch.cat([packed.to(self.device),
+                                packed.new_zeros((pad, w)).to(self.device)])
+        self.valid = torch.arange(n + pad, device=self.device) < n
+        self.scale = self.sqnorm = self.gscale = self.bin_live = None
+        self.rr_codes = None
+        if rr_codes is not None:
+            rr = torch.as_tensor(rr_codes).to(self.device).to(rerank_dtype)
+            self.rr_codes = torch.cat([rr, rr.new_zeros((pad, dim))])
+        return self
 
     def search_tensors(
         self, queries: torch.Tensor, k: int, *, oversample: int = 8,
@@ -265,7 +372,13 @@ class DistributedFlatIndex:
         returning device tensors ``(scores, ids)`` without waiting for the
         device (the bench queues batches through this). ``fused`` and
         ``final`` choose the scan of a non-unit_i8 index; a unit_i8 index
-        always runs K2 with its own selection, as in the reference."""
+        always runs K2 with its own selection, as in the reference; a BQ
+        index its Hamming shortlist (``fused`` and ``final`` unused)."""
+        if self.quantization == Quantization.BQ:
+            return sharded_bq_topk(
+                self.device, self.codes, self.valid, self.rr_codes, queries,
+                k=k, oversample=oversample, dim=self.dim,
+            )
         if self.unit_i8:
             return sharded_unit_i8_topk(
                 self.device, self.codes, self.gscale, self.bin_live,
@@ -292,3 +405,52 @@ class DistributedFlatIndex:
         ids = np.where(np.isneginf(scores), -1, ids)
         return scores, ids
 
+
+
+class DistributedPQIndex:
+    """A PQ index on one device: train once (sampled) unless a codebook is
+    given, encode, serve ADC scans. PQ codes at M = dim/8 are one byte
+    per 8 floats."""
+
+    def __init__(
+        self,
+        device,
+        vectors,
+        *,
+        metric: Metric = Metric.COSINE,
+        codebook: Optional[PQCodebook] = None,
+        m: Optional[int] = None,
+        train_sample: int = 65_536,
+        compute_dtype=torch.bfloat16,
+        opq_iters: int = 0,
+    ):
+        self.device = _one_device(device)
+        self.metric = Metric.parse(metric)
+        self.compute_dtype = compute_dtype
+        vectors = torch.as_tensor(vectors, dtype=torch.float32).to(self.device)
+        self.n, self.dim = vectors.shape
+        if codebook is None:
+            codebook = train_pq(vectors, m=m, sample_size=train_sample,
+                                opq_iters=opq_iters)
+        self.codebook = codebook.to(self.device)
+        self.codes, self.sqnorm = pq_encode(vectors, self.codebook)
+        self.valid = torch.ones(self.n, dtype=torch.bool, device=self.device)
+
+    def search_tensors(self, queries: torch.Tensor, k: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """:meth:`search` on a ``[Q, D]`` f32 tensor on the index's device,
+        returning device tensors ``(scores, ids)``."""
+        return sharded_pq_topk(
+            self.device, self.codes, self.codebook.centroids, self.sqnorm,
+            self.valid, queries, k=k, metric=self.metric,
+            compute_dtype=self.compute_dtype, rotation=self.codebook.rotation,
+            coarse=self.codebook.coarse,
+        )
+
+    def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k of each query: host ``(scores [Q, k] 0-100, ids [Q, k])``;
+        an empty slot has score -inf and id -1."""
+        queries = torch.as_tensor(
+            np.atleast_2d(np.asarray(queries, np.float32))).to(self.device)
+        scores, ids = fetch_scores_ids(*self.search_tensors(queries, k))
+        return scores, np.where(np.isneginf(scores), -1, ids)

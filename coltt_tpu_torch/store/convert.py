@@ -11,7 +11,9 @@ codes cross as raw bits (:func:`_from_bits`, :func:`_to_bits`; the flat
 index's ``parallel/convert.py`` uses them too): any numpy array of the
 code width is accepted and reinterpreted, and :func:`flat_store_to_arrays`
 returns bf16 / f8 codes as ``int16`` / ``int8`` bit patterns
-(``.view(ml_dtypes.bfloat16)`` gives the JAX dtype back).
+(``.view(ml_dtypes.bfloat16)`` gives the JAX dtype back). BQ words cross
+as their 32 bits (the reference's uint32, the port's int32). A PQ
+codebook crosses as a dict of numpy arrays (:func:`pq_codebook_to_arrays`).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import numpy as np
 import torch
 
 from coltt_tpu_torch.ops.distance import Metric
-from coltt_tpu_torch.ops.quant import Quantization
+from coltt_tpu_torch.ops.pq import PQCodebook
+from coltt_tpu_torch.ops.quant import Quantization, storage_dtype
 from coltt_tpu_torch.store.flat import FlatStore, _INT_VIEW
 
 _NP_INT = {1: np.int8, 2: np.int16, 4: np.int32}
@@ -39,9 +42,29 @@ def _from_bits(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
 def _to_bits(t: torch.Tensor) -> np.ndarray:
     """numpy of ``t``; bf16 / f8 as int16 / int8 bit patterns."""
     t = t.cpu()
-    if t.dtype not in (torch.float32, torch.int8, torch.float16):
+    if t.dtype not in (torch.float32, torch.int8, torch.float16, torch.uint8,
+                       torch.int32):
         t = t.view(_INT_VIEW[t.element_size()])
     return t.numpy()
+
+
+def pq_codebook_from_arrays(centroids, rotation=None, coarse=None, *,
+                            device="cuda") -> PQCodebook:
+    """A port codebook from numpy arrays (a JAX ``PQCodebook``'s
+    ``centroids [M, K, dsub]``, ``rotation [D, D]`` and ``coarse [C, D]``,
+    fetched): how the reference's trained state crosses."""
+    def f32(a):
+        return None if a is None else torch.from_numpy(
+            np.array(a, np.float32)).to(device)
+
+    return PQCodebook(f32(centroids), f32(rotation), f32(coarse))
+
+
+def pq_codebook_to_arrays(cb: PQCodebook) -> dict:
+    """Inverse of :func:`pq_codebook_from_arrays` (numpy f32)."""
+    host = lambda t: None if t is None else t.cpu().numpy()  # noqa: E731
+    return {"centroids": host(cb.centroids), "rotation": host(cb.rotation),
+            "coarse": host(cb.coarse)}
 
 
 def flat_store_from_arrays(
@@ -56,20 +79,42 @@ def flat_store_from_arrays(
     pk_to_slot: Dict[str, int],
     free: Iterable[int] = (),
     next_slot: Optional[int] = None,
+    pqcodes: Optional[np.ndarray] = None,
+    rr_codes: Optional[np.ndarray] = None,
+    rr_scale: Optional[np.ndarray] = None,
+    codebook: Optional[dict] = None,
     device="cuda",
+    **options,
 ) -> FlatStore:
     """A port FlatStore holding exactly these arrays and slot maps.
-    ``next_slot`` defaults to one past the highest used slot."""
+    ``next_slot`` defaults to one past the highest used slot. ``codes`` is
+    what the store scans (a PQ-cache store's f8 cache); ``pqcodes`` a
+    PQ-cache store's code rows, ``rr_codes`` / ``rr_scale`` a BQ store's
+    rerank copy, ``codebook`` a PQ store's (:func:`pq_codebook_to_arrays`);
+    ``options`` are the FlatStore's PQ / BQ settings."""
     store = FlatStore(dim, metric=Metric.parse(metric),
                       quantization=Quantization.parse(quantization),
-                      device=device)
+                      device=device, **options)
+    dev = store.device
     cap = codes.shape[0]
-    store.codes = _from_bits(codes, store._qdtype).reshape(cap, dim).to(store.device)
+    width, dtype = store._scan_shape
+    store.codes = _from_bits(codes, dtype).reshape(cap, width).to(dev)
     store.scale = torch.from_numpy(
-        np.array(scale, np.float32).reshape(cap, 1)).to(store.device)
+        np.array(scale, np.float32).reshape(cap, 1)).to(dev)
     store.sqnorm = torch.from_numpy(
-        np.array(sqnorm, np.float32).reshape(cap)).to(store.device)
-    store.valid = torch.from_numpy(np.array(valid, bool).reshape(cap)).to(store.device)
+        np.array(sqnorm, np.float32).reshape(cap)).to(dev)
+    store.valid = torch.from_numpy(np.array(valid, bool).reshape(cap)).to(dev)
+    if codebook is not None:
+        store.codebook = pq_codebook_from_arrays(**codebook, device=dev)
+    if store.pq_host:
+        store.pqcodes_host = np.array(pqcodes, np.uint8)
+    elif store.pq_cache:
+        store.pqcodes = torch.from_numpy(np.array(pqcodes, np.uint8)).to(dev)
+    if store.bq_rerank:
+        rdt = storage_dtype(store.bq_rr_quant)
+        store.rr_codes = _from_bits(rr_codes, rdt).reshape(cap, dim).to(dev)
+        store.rr_scale = torch.from_numpy(
+            np.array(rr_scale, np.float32).reshape(cap, 1)).to(dev)
     store.capacity = cap
     store.pk_to_slot = dict(pk_to_slot)
     store.slot_to_pk = {slot: pk for pk, slot in store.pk_to_slot.items()}
@@ -81,10 +126,10 @@ def flat_store_from_arrays(
 
 def flat_store_to_arrays(store: FlatStore) -> dict:
     """The store's state as numpy (synced first): the keyword arguments of
-    :func:`flat_store_from_arrays`."""
+    :func:`flat_store_from_arrays`, its PQ / BQ settings included."""
     with store._mu:
         store.sync()
-        return {
+        out = {
             "dim": store.dim,
             "metric": int(store.metric),
             "quantization": int(store.quantization),
@@ -96,3 +141,21 @@ def flat_store_to_arrays(store: FlatStore) -> dict:
             "free": list(store._free),
             "next_slot": store._next_slot,
         }
+        if store.is_pq:
+            out.update(
+                pq_subspaces=store.pq_m, pq_centroids=store.pq_centroids,
+                pq_train_iters=store.pq_train_iters, pq_cache=store.pq_cache,
+                pq_host_codes=store.pq_host, pq_opq_iters=store.pq_opq_iters,
+                pq_coarse=store.pq_coarse,
+                codebook=(None if store.codebook is None
+                          else pq_codebook_to_arrays(store.codebook)))
+            if store.pq_cache:
+                out["pqcodes"] = np.array(store._pq_code_array() if store.pq_host
+                                          else store.pqcodes.cpu().numpy())
+        if store.is_bq:
+            out.update(bq_rerank=store.bq_rerank, bq_oversample=store.bq_oversample,
+                       bq_rerank_dtype=store.bq_rr_quant)
+            if store.bq_rerank:
+                out["rr_codes"] = _to_bits(store.rr_codes)
+                out["rr_scale"] = store.rr_scale.cpu().numpy()
+        return out

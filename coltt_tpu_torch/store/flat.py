@@ -1,25 +1,41 @@
 """FLAT quantized vector store with slot-based mutation, on torch tensors.
 
-Port of ``coltt_tpu/store/flat.py``, dense modes (none / f16 / bf16 / f8 /
-i8). Vectors live in a dense ``[capacity, D]`` tensor in storage dtype on
-the store's device, with a per-row fp32 scale, the squared norms of the
-dequantized rows, and a validity (tombstone) mask. Mutation is slot-based
-and staged:
+Port of ``coltt_tpu/store/flat.py``. Vectors live in a dense
+``[capacity, width]`` tensor on the store's device, with a per-row fp32
+scale, the squared norms of the dequantized rows, and a validity
+(tombstone) mask. Mutation is slot-based and staged:
 
 - upsert resolves the primary key to an existing slot (overwrite) or pops
   a free slot / appends; rows are staged host-side and applied at the next
-  ``sync`` in one batched scatter, quantized on the device;
+  ``sync`` in one batched scatter, encoded on the device;
 - delete tombstones the slot (valid=False) and returns it to the free list;
 - capacity grows by doubling from 8192 rows, so the fused kernel's shape
   rules always hold.
 
-Search is the blocked scan (:mod:`coltt_tpu_torch.ops.topk`) or, with
-``fused=True`` where :func:`~coltt_tpu_torch.ops.fused_scan.supports`
-holds, the fused kernel K1. Filtered search gathers the candidate rows when
-there are few (``capacity // 6``, a crossover measured for the JAX package
-and kept as a tunable default) and masks a full scan otherwise.
+Modes:
 
-PQ and BQ are not ported yet and raise NotImplementedError.
+- dense (none / f16 / bf16 / f8 / i8): the blocked scan
+  (:mod:`coltt_tpu_torch.ops.topk`) or, with ``fused=True`` where
+  :func:`~coltt_tpu_torch.ops.fused_scan.supports` holds, the fused kernel
+  K1;
+- BQ (:mod:`~coltt_tpu_torch.ops.bq`): packed sign words ``[cap, W]``
+  int32, a Hamming shortlist of ``k * bq_oversample`` rows, then by
+  default a rerank against a bf16 (or f16 / f8) copy of the rows, which is
+  authoritative extra state and goes into the snapshot; cosine only;
+- PQ (:mod:`~coltt_tpu_torch.ops.pq`): the authoritative ``[cap, M]``
+  uint8 codes (``[cap, 2+M]`` in residual mode), the codebook trained on
+  the first synced batch. With ``pq_cache`` (default) the codes are
+  decompressed once per mutation into an f8 scan cache of the
+  reconstruction, which every dense scan (K1 included) serves, and
+  ``oversample > 1`` reranks a shortlist against the exact f32
+  reconstruction; ``pq_host_codes`` keeps the code table on the host and
+  gathers the shortlist's rows there. ``pq_cache=False`` scans the codes
+  by ADC (low memory). With OPQ, queries are rotated before any scan of
+  the cache.
+
+Filtered search gathers the candidate rows when there are few
+(``capacity // 6``, a crossover measured for the JAX package and kept as a
+tunable default) and masks a full scan otherwise.
 """
 
 from __future__ import annotations
@@ -33,16 +49,45 @@ import msgpack
 import numpy as np
 import torch
 
+from coltt_tpu_torch.ops.bq import (
+    bq_decode,
+    bq_encode,
+    bq_scan_neg_topk,
+    bq_words,
+    hamming_to_neg_cos_dist,
+)
 from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.fused_scan import fused_scan_topk
 from coltt_tpu_torch.ops.fused_scan import supports as fused_supports
+from coltt_tpu_torch.ops.pq import (
+    PQCodebook,
+    _reconstruct,
+    default_subspaces,
+    pq_encode,
+    pq_reconstruct,
+    pq_rescore_rows,
+    pq_scan_topk,
+    pq_sqnorm,
+    train_pq,
+)
 from coltt_tpu_torch.ops.quant import Quantization, dequantize, quantize, storage_dtype
-from coltt_tpu_torch.ops.topk import fetch_scores_ids, scan_topk
+from coltt_tpu_torch.ops.topk import (
+    fetch_scores_ids,
+    fit_rows,
+    rerank_neg_topk,
+    scan_topk,
+    scores_from_negd,
+)
+from coltt_tpu_torch.parallel.dist_search import sharded_scan_topk, shortlist_scan
 
 _CAPACITY_QUANTUM = 8192
 # candidate-count fraction below which the gather regime wins the masked
 # scan; measured for the JAX package, not yet on the card
 _GATHER_FRACTION = 6
+# a PQ-cache collection loads with its code table on the host when the
+# table passes this size (the reference's rule, set for a 16 GB chip;
+# results are the same either way)
+PQ_HOST_CODES_BYTES = 2 << 30
 
 _SNAPSHOT_MAGIC = b"CTTFLAT1"
 
@@ -50,21 +95,12 @@ _SNAPSHOT_MAGIC = b"CTTFLAT1"
 # of the same width
 _INT_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 
-_NOT_PORTED = {
-    Quantization.PQ: "PQ",
-    Quantization.BQ: "BQ",
-}
-
 
 def _round_capacity(n: int) -> int:
     cap = _CAPACITY_QUANTUM
     while cap < n:
         cap *= 2
     return cap
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {what})")
 
 
 def tensor_to_bytes(t: torch.Tensor) -> bytes:
@@ -81,6 +117,29 @@ def tensor_from_bytes(raw, dtype: torch.dtype, shape) -> torch.Tensor:
         return torch.frombuffer(bytearray(raw), dtype=torch.bool).reshape(shape)
     ints = torch.frombuffer(bytearray(raw), dtype=_INT_VIEW[dtype.itemsize])
     return ints.view(dtype).reshape(shape)
+
+
+def pq_cache_rows(pqcodes: torch.Tensor, codebook: PQCodebook):
+    """The f8 scan cache of PQ code rows: each row reconstructed in f32
+    (residual-aware), quantized to f8 with its per-row scale, and the
+    squared norm of the dequantized row. Returns ``(codes [N, D] f8,
+    scale [N, 1] f32, sqnorm [N] f32)``, blocked over rows by free
+    memory."""
+    n = pqcodes.shape[0]
+    d = codebook.dim
+    dev = pqcodes.device
+    codes = torch.empty((n, d), dtype=torch.float8_e4m3fn, device=dev)
+    scale = torch.empty((n, 1), dtype=torch.float32, device=dev)
+    sqnorm = torch.empty(n, dtype=torch.float32, device=dev)
+    step = fit_rows(n, d * 16 + pqcodes.shape[1] * 8, dev)
+    for s in range(0, n, step):
+        rec = _reconstruct(pqcodes[s:s + step], codebook.centroids,
+                           torch.float32, coarse=codebook.coarse)
+        c8, s8 = quantize(rec, Quantization.F8)
+        deq = dequantize(c8, s8)
+        codes[s:s + step], scale[s:s + step] = c8, s8
+        sqnorm[s:s + step] = (deq * deq).sum(dim=1)
+    return codes, scale, sqnorm
 
 
 def _locked(fn):
@@ -106,15 +165,55 @@ class FlatStore:
         quantization: Quantization = Quantization.NONE,
         compute_dtype=None,
         device="cuda",
+        pq_subspaces: Optional[int] = None,
+        pq_centroids: int = 256,
+        pq_train_iters: int = 15,
+        pq_cache: bool = True,
+        pq_host_codes: bool = False,
+        pq_opq_iters: int = 0,
+        pq_coarse: int = 0,
+        bq_rerank: bool = True,
+        bq_oversample: int = 64,
+        bq_rerank_dtype=Quantization.BF16,
     ):
         self._mu = threading.RLock()
         self.dim = int(dim)
         self.metric = Metric.parse(metric)
         self.quantization = Quantization.parse(quantization)
-        if self.quantization in _NOT_PORTED:
-            raise _not_ported(_NOT_PORTED[self.quantization])
         self.device = torch.device(device)
-        self._qdtype = storage_dtype(self.quantization)
+        self.is_pq = self.quantization == Quantization.PQ
+        self.is_bq = self.quantization == Quantization.BQ
+        self.pq_cache = bool(pq_cache) and self.is_pq
+        self.pq_host = bool(pq_host_codes) and self.pq_cache
+        self.bq_rerank = bool(bq_rerank) and self.is_bq
+        self.bq_oversample = int(bq_oversample)
+        self.bq_rr_quant = Quantization.parse(bq_rerank_dtype)
+        if self.is_bq and self.bq_rr_quant not in (
+            Quantization.BF16, Quantization.F16, Quantization.F8
+        ):
+            raise ValueError("bq_rerank_dtype must be bf16/f16/f8")
+        if self.is_bq and self.metric != Metric.COSINE:
+            raise ValueError("BQ quantization is cosine-only (sign bits carry no magnitude)")
+        self.codebook: Optional[PQCodebook] = None
+        if self.is_pq:
+            self._qdtype = torch.uint8
+            self.pq_m = int(pq_subspaces or default_subspaces(self.dim))
+            if self.dim % self.pq_m != 0:
+                raise ValueError(
+                    f"dim {self.dim} not divisible by pq_subspaces={self.pq_m}")
+            self.pq_centroids = int(pq_centroids)
+            self.pq_train_iters = int(pq_train_iters)
+            self.pq_opq_iters = int(pq_opq_iters)
+            self.pq_coarse = int(pq_coarse)
+            # residual codes carry the uint16 coarse id as a 2-byte prefix
+            self.pq_width = self.pq_m + (2 if self.pq_coarse else 0)
+            self._row_width = self.pq_width
+        elif self.is_bq:
+            self._qdtype = torch.int32  # the reference's uint32 bits
+            self._row_width = bq_words(self.dim)
+        else:
+            self._qdtype = storage_dtype(self.quantization)
+            self._row_width = self.dim
         # unquantized stores scan in full f32; quantized stores multiply
         # bf16 operands (their codes carry less than bf16 anyway)
         if compute_dtype is None:
@@ -137,12 +236,39 @@ class FlatStore:
         self._readers = 0
 
     # -- device state ------------------------------------------------------
+    @property
+    def _scan_shape(self):
+        """(width, dtype) of ``self.codes``, the tensor dense scans read."""
+        if self.pq_cache:
+            return self.dim, torch.float8_e4m3fn
+        return self._row_width, self._qdtype
+
+    def _pq_code_array(self):
+        """The authoritative PQ code rows: numpy in host-codes mode, a
+        device tensor otherwise."""
+        if self.pq_host:
+            return self.pqcodes_host
+        return self.pqcodes if self.pq_cache else self.codes
+
     def _zeros(self, shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=self.device)
 
+    def _ones(self, shape):
+        return torch.ones(shape, dtype=torch.float32, device=self.device)
+
     def _alloc(self, cap: int) -> None:
-        self.codes = self._zeros((cap, self.dim), self._qdtype)
-        self.scale = torch.ones((cap, 1), dtype=torch.float32, device=self.device)
+        width, dtype = self._scan_shape
+        self.codes = self._zeros((cap, width), dtype)
+        self.pqcodes = self.pqcodes_host = None
+        if self.pq_host:
+            self.pqcodes_host = np.zeros((cap, self.pq_width), np.uint8)
+        elif self.pq_cache:
+            self.pqcodes = self._zeros((cap, self.pq_width), torch.uint8)
+        self.rr_codes = self.rr_scale = None
+        if self.bq_rerank:
+            self.rr_codes = self._zeros((cap, self.dim), storage_dtype(self.bq_rr_quant))
+            self.rr_scale = self._ones((cap, 1))
+        self.scale = self._ones((cap, 1))
         self.sqnorm = self._zeros((cap,), torch.float32)
         self.valid = self._zeros((cap,), torch.bool)
         self.capacity = cap
@@ -151,10 +277,20 @@ class FlatStore:
         # new tensors (torch.cat), so live search snapshots keep the old ones
         new_cap = _round_capacity(need)
         pad = new_cap - self.capacity
-        self.codes = torch.cat([self.codes, self._zeros((pad, self.dim), self._qdtype)])
-        self.scale = torch.cat([
-            self.scale,
-            torch.ones((pad, 1), dtype=torch.float32, device=self.device)])
+        width, dtype = self._scan_shape
+        self.codes = torch.cat([self.codes, self._zeros((pad, width), dtype)])
+        if self.pq_host:
+            self.pqcodes_host = np.concatenate(
+                [self.pqcodes_host, np.zeros((pad, self.pq_width), np.uint8)])
+        elif self.pq_cache:
+            self.pqcodes = torch.cat(
+                [self.pqcodes, self._zeros((pad, self.pq_width), torch.uint8)])
+        if self.bq_rerank:
+            self.rr_codes = torch.cat([
+                self.rr_codes,
+                self._zeros((pad, self.dim), storage_dtype(self.bq_rr_quant))])
+            self.rr_scale = torch.cat([self.rr_scale, self._ones((pad, 1))])
+        self.scale = torch.cat([self.scale, self._ones((pad, 1))])
         self.sqnorm = torch.cat([self.sqnorm, self._zeros((pad,), torch.float32)])
         self.valid = torch.cat([self.valid, self._zeros((pad,), torch.bool)])
         self.capacity = new_cap
@@ -207,6 +343,66 @@ class FlatStore:
             slots.append(slot)
         return slots
 
+    def _train(self, rows: torch.Tensor) -> PQCodebook:
+        return train_pq(
+            rows, m=self.pq_m, n_centroids=self.pq_centroids,
+            iters=self.pq_train_iters, opq_iters=self.pq_opq_iters,
+            coarse_centroids=self.pq_coarse,
+        )
+
+    @_locked
+    def bulk_build(self, pks, vectors) -> None:
+        """Device-side bulk ingest of an empty store: ``vectors`` (numpy or
+        a tensor) are encoded on the device without host staging; a PQ
+        store trains its codebook on them first."""
+        if len(self.pk_to_slot) or self._pending or self._free:
+            raise RuntimeError("bulk_build requires an empty store")
+        vectors = torch.as_tensor(vectors, dtype=torch.float32).to(self.device)
+        n, d = vectors.shape
+        if d != self.dim:
+            raise ValueError(f"expected [N, {self.dim}] vectors, got {tuple(vectors.shape)}")
+        if len(pks) != n:
+            raise ValueError("pks/vectors length mismatch")
+        cap = max(_round_capacity(n), self.capacity)
+        pad = cap - n
+
+        def padded(t, value=0.0):
+            shape = (pad, *t.shape[1:])
+            return torch.cat([t, t.new_full(shape, value) if value else t.new_zeros(shape)])
+
+        if self.is_pq:
+            if self.codebook is None:
+                self.codebook = self._train(vectors)
+            u_pq, u_sqnorm = pq_encode(padded(vectors), self.codebook)
+            if self.pq_cache:
+                if self.pq_host:
+                    self.pqcodes_host = u_pq.cpu().numpy()
+                else:
+                    self.pqcodes = u_pq
+                self.codes, self.scale, self.sqnorm = pq_cache_rows(u_pq, self.codebook)
+            else:
+                self.codes, self.scale, self.sqnorm = u_pq, self._ones((cap, 1)), u_sqnorm
+        elif self.is_bq:
+            self.codes = padded(bq_encode(vectors))
+            if self.bq_rerank:
+                rr, rr_s = quantize(vectors, self.bq_rr_quant)
+                self.rr_codes = padded(rr)
+                self.rr_scale = padded(rr_s, 1.0)
+            # scale / sqnorm are unused by the Hamming scan; kept in step
+            self.scale = self._ones((cap, 1))
+            self.sqnorm = self._zeros((cap,), torch.float32)
+        else:
+            codes, scale = quantize(vectors, self.quantization)
+            deq = dequantize(codes, scale)
+            self.codes = padded(codes)
+            self.scale = padded(scale, 1.0)
+            self.sqnorm = padded((deq * deq).sum(dim=1))
+        self.valid = torch.arange(cap, device=self.device) < n
+        self.capacity = cap
+        self._next_slot = n
+        self.pk_to_slot = dict(zip(pks, range(n)))
+        self.slot_to_pk = dict(enumerate(pks))
+
     @_locked
     def delete(self, pk: str) -> Optional[int]:
         """Tombstone + free the slot (RemoveVertex parity,
@@ -221,36 +417,70 @@ class FlatStore:
 
     @_locked
     def sync(self) -> None:
-        """Apply staged mutations in one batched scatter, quantizing on
-        the device and recomputing ``sqnorm`` from the dequantized rows.
+        """Apply staged mutations in one batched scatter, encoding on the
+        device: quantized (and ``sqnorm`` recomputed from the dequantized
+        rows), sign-packed (BQ, with its rerank copy), or PQ-encoded and
+        decompressed into the f8 cache (the first batch with live rows
+        trains the codebook).
 
         Writes in place when no search snapshot is live; while one is
         (``_readers > 0``), writes out of place so the snapshot's tensors
-        never change under its scan."""
+        never change under its scan. A host-resident PQ code table is
+        written in place either way, as in the reference."""
         if not self._pending:
             return
         items = sorted(self._pending.items())
         self._pending = {}
-        slots = torch.tensor([s for s, _ in items], dtype=torch.int64,
-                             device=self.device)
-        rows = np.stack(
+        slots_np = np.array([s for s, _ in items], np.int64)
+        slots = torch.from_numpy(slots_np).to(self.device)
+        rows = torch.from_numpy(np.stack(
             [np.zeros(self.dim, np.float32) if v is None else v for _, v in items]
-        )
+        )).to(self.device)
         alive = torch.tensor([v is not None for _, v in items], dtype=torch.bool,
                              device=self.device)
-        u_codes, u_scale = quantize(torch.from_numpy(rows).to(self.device),
-                                    self.quantization)
-        deq = dequantize(u_codes, u_scale)
-        u_sqnorm = (deq * deq).sum(dim=1)
-        updates = ((self.codes, u_codes), (self.scale, u_scale),
-                   (self.sqnorm, u_sqnorm), (self.valid, alive))
-        if self._readers == 0:
-            for dst, src in updates:
-                dst.index_put_((slots,), src)
+        n = len(items)
+        updates = []  # (attribute, rows to scatter at ``slots``)
+        if self.is_pq:
+            if self.codebook is None and any(v is not None for _, v in items):
+                # lazy train on the first synced batch (the reference's
+                # contract: the first ingest is the training sample)
+                self.codebook = self._train(rows[alive])
+            if self.codebook is None:  # an all-deletes batch before any data
+                u_pq = self._zeros((n, self.pq_width), torch.uint8)
+                u_sqnorm = self._zeros((n,), torch.float32)
+            else:
+                u_pq, u_sqnorm = pq_encode(rows, self.codebook)
+            if self.pq_cache:
+                if self.codebook is None:
+                    u_codes = self._zeros((n, self.dim), torch.float8_e4m3fn)
+                    u_scale = self._ones((n, 1))
+                else:
+                    u_codes, u_scale, u_sqnorm = pq_cache_rows(u_pq, self.codebook)
+                if self.pq_host:
+                    self.pqcodes_host[slots_np] = u_pq.cpu().numpy()
+                else:
+                    updates.append(("pqcodes", u_pq))
+            else:
+                u_codes, u_scale = u_pq, self._ones((n, 1))
+        elif self.is_bq:
+            u_codes = bq_encode(rows)
+            u_scale = self._ones((n, 1))
+            u_sqnorm = self._zeros((n,), torch.float32)
+            if self.bq_rerank:
+                rr, rr_s = quantize(rows, self.bq_rr_quant)
+                updates += [("rr_codes", rr), ("rr_scale", rr_s)]
         else:
-            self.codes, self.scale, self.sqnorm, self.valid = (
-                dst.index_put((slots,), src) for dst, src in updates
-            )
+            u_codes, u_scale = quantize(rows, self.quantization)
+            deq = dequantize(u_codes, u_scale)
+            u_sqnorm = (deq * deq).sum(dim=1)
+        updates += [("codes", u_codes), ("scale", u_scale), ("sqnorm", u_sqnorm),
+                    ("valid", alive)]
+        for name, src in updates:
+            dst = getattr(self, name)
+            if self._readers == 0:
+                dst.index_put_((slots,), src)
+            else:
+                setattr(self, name, dst.index_put((slots,), src))
 
     # -- queries -----------------------------------------------------------
     def __len__(self) -> int:
@@ -258,8 +488,15 @@ class FlatStore:
 
     @property
     def memory_bytes(self) -> int:
-        """Device bytes of the store's tensors."""
-        return self.capacity * (self.dim * self._qdtype.itemsize + 4 + 4 + 1)
+        """Device bytes of the store's tensors (a host code table excluded)."""
+        per_row = self._row_width * self._qdtype.itemsize + 4 + 4 + 1
+        if self.pq_host:
+            per_row -= self._row_width  # codes live on the host
+        if self.pq_cache:
+            per_row += self.dim  # f8 scan cache
+        if self.bq_rerank:
+            per_row += self.dim * storage_dtype(self.bq_rr_quant).itemsize + 4
+        return self.capacity * per_row
 
     @_locked
     def get_vector(self, pk: str) -> Optional[np.ndarray]:
@@ -270,6 +507,16 @@ class FlatStore:
         if pend is not None:
             return pend.copy()
         self.sync()
+        if self.is_pq:
+            if self.codebook is None:
+                return None
+            row = torch.as_tensor(self._pq_code_array()[slot:slot + 1]).to(self.device)
+            return pq_reconstruct(row, self.codebook, derotate=True)[0].cpu().numpy()
+        if self.is_bq:
+            if self.bq_rerank:
+                row = self.rr_codes[slot].to(torch.float32).cpu().numpy()
+                return row * float(self.rr_scale[slot, 0])
+            return bq_decode(self.codes[slot:slot + 1], self.dim)[0].cpu().numpy()
         row = self.codes[slot].to(torch.float32).cpu().numpy()
         return row * float(self.scale[slot, 0])
 
@@ -281,12 +528,18 @@ class FlatStore:
         candidates: Optional[np.ndarray] = None,
         metric: Optional[Metric] = None,
         fused: bool = False,
+        oversample: int = 1,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Top-k scan. Returns ``(scores [Q,k], slots [Q,k])`` as numpy;
         empty slots carry score -inf and slot -1. ``candidates`` is an
         optional dense int32 array of allowed slots (from the inverted
         index) — the filtered path. ``fused`` selects the fused kernel K1
         where the store's shape supports it (the plain scan otherwise).
+        ``oversample > 1``: on a PQ-cache store, shortlist
+        ``k * oversample`` rows from the f8 cache (through K1 when
+        ``fused``) and rerank them against the exact reconstruction; on a
+        BQ store, it overrides ``bq_oversample``. Other modes ignore it,
+        and BQ ignores ``fused``.
 
         Locking: only sync() and a shallow snapshot of the tensor
         references run under the store lock; the scan runs outside it, so
@@ -299,13 +552,17 @@ class FlatStore:
         try:
             return snap._search_unlocked(
                 queries, k, candidates=candidates, metric=metric, fused=fused,
+                oversample=oversample,
             )
         finally:
             with self._mu:
                 self._readers -= 1
 
+    def _empty(self, q: int, k: int):
+        return np.full((q, k), -np.inf, np.float32), np.full((q, k), -1, np.int32)
+
     def _search_unlocked(self, queries, k, *, candidates=None, metric=None,
-                         fused=False):
+                         fused=False, oversample=1):
         """search() body on an already-synced snapshot (see search)."""
         metric = self.metric if metric is None else Metric.parse(metric)
         queries = np.atleast_2d(np.asarray(queries, np.float32))
@@ -316,44 +573,123 @@ class FlatStore:
         k = max(1, int(k))
         # gRPC hands a read-only buffer; torch wants writable memory
         tq = torch.from_numpy(np.require(queries, requirements="W")).to(self.device)
+        if self.pq_cache and self.codebook is not None:
+            # the f8 cache stores OPQ-rotated reconstructions
+            tq = self.codebook.rotate(tq)
         valid = self.valid
         if candidates is not None:
             candidates = np.asarray(candidates, np.int64).reshape(-1)
             if candidates.size == 0:
-                q = queries.shape[0]
-                return (
-                    np.full((q, k), -np.inf, np.float32),
-                    np.full((q, k), -1, np.int32),
-                )
+                return self._empty(queries.shape[0], k)
             cand = torch.from_numpy(candidates).to(self.device)
             if candidates.size < max(k, self.capacity // _GATHER_FRACTION):
-                return self._search_gathered(tq, cand, k, metric)
+                return self._search_gathered(tq, cand, k, metric, oversample)
             mask = torch.zeros(self.capacity, dtype=torch.bool, device=self.device)
             mask[cand] = True
             valid = valid & mask
 
-        if fused and fused_supports(self.capacity, self.dim, metric,
-                                    self.codes.dtype):
+        if self.is_bq:
+            if metric != Metric.COSINE:
+                raise ValueError("BQ collections are cosine-only")
+            return self._search_bq(tq, valid, k, oversample)
+        kk = min(k, self.capacity)
+        if self.is_pq and not self.pq_cache:
+            if self.codebook is None:  # nothing ever synced
+                return self._empty(queries.shape[0], k)
+            scores, slots = pq_scan_topk(
+                tq, self.codes, self.codebook, self.sqnorm, valid, k=kk,
+                metric=metric, compute_dtype=self.compute_dtype,
+            )
+        elif self.pq_cache and self.codebook is not None and oversample > 1:
+            scores, slots = self._search_pq_rerank(tq, valid, k, metric, fused,
+                                                   oversample)
+        elif fused and fused_supports(self.capacity, self.dim, metric,
+                                      self.codes.dtype):
             scores, slots = fused_scan_topk(
-                tq, self.codes, self.scale, self.sqnorm, valid,
-                k=min(k, self.capacity), metric=metric,
-                compute_dtype=self.compute_dtype,
+                tq, self.codes, self.scale, self.sqnorm, valid, k=kk,
+                metric=metric, compute_dtype=self.compute_dtype,
             )
         else:
             scores, slots = scan_topk(
-                tq, self.codes, self.scale, self.sqnorm, valid,
-                k=min(k, self.capacity), metric=metric,
-                compute_dtype=self.compute_dtype,
+                tq, self.codes, self.scale, self.sqnorm, valid, k=kk,
+                metric=metric, compute_dtype=self.compute_dtype,
             )
         return self._trim(*fetch_scores_ids(scores, slots), k)
 
-    def _search_gathered(self, tq, cand, k, metric):
+    def _search_pq_rerank(self, tq, valid, k, metric, fused, oversample):
+        """f8-cache shortlist of ``k * oversample`` rows (K1 when ``fused``
+        and the cache's shape supports it, else the plain scan), then the
+        rerank against the exact reconstruction: the index's
+        ``sharded_scan_topk(pq_rerank=...)``. Host-resident codes gather
+        the shortlist's code rows on the host instead. ``tq`` is rotated."""
+        kk = min(k, self.capacity)
+        cb = self.codebook
+        kw = dict(metric=metric, compute_dtype=self.compute_dtype, fused=fused)
+        if not self.pq_host:
+            return sharded_scan_topk(
+                self.device, self.codes, self.scale, self.sqnorm, valid, tq, k=kk,
+                oversample=oversample, pq_rerank=(self.pqcodes, cb.centroids, cb.coarse),
+                **kw)
+        negd, slots = shortlist_scan(tq, self.codes, self.scale, self.sqnorm, valid,
+                                     k=min(k * oversample, self.capacity), **kw)
+        # gather the shortlist's code rows on the host and upload them
+        ih = slots.cpu().numpy()
+        crow = torch.from_numpy(
+            self.pqcodes_host[np.where(ih >= 0, ih, 0).reshape(-1)]).to(self.device)
+        negd, slots = pq_rescore_rows(tq, negd, slots, crow, cb.centroids, k=kk,
+                                      metric=metric, coarse=cb.coarse)
+        return scores_from_negd(negd, metric), slots
+
+    def _bq_shortlist(self, k: int, oversample: int, rows: int) -> int:
+        ovs = oversample if oversample > 1 else (
+            self.bq_oversample if self.bq_rerank else 1)
+        return min(k * max(ovs, 1), rows)
+
+    def _search_bq(self, tq, valid, k: int, oversample: int):
+        """Hamming shortlist over the packed bits, then (by default) the
+        rerank of the shortlist. ``oversample=1`` uses ``bq_oversample``;
+        a store without a rerank copy serves the Hamming values and keeps
+        the exact per-block selection."""
+        negh, slots = bq_scan_neg_topk(
+            bq_encode(tq), self.codes, valid,
+            k=self._bq_shortlist(k, oversample, self.capacity),
+            exact=not self.bq_rerank)
+        return self._finish_bq(tq, negh, slots, k)
+
+    def _finish_bq(self, tq, negh, slots, k: int):
+        kk = min(k, negh.shape[1])
+        if self.bq_rerank:
+            negd, slots = rerank_neg_topk(
+                tq, negh, slots, self.rr_codes, k=kk, metric=Metric.COSINE,
+                compute_dtype=self.compute_dtype, rr_scale=self.rr_scale)
+        else:
+            negd, slots = hamming_to_neg_cos_dist(negh[:, :kk], self.dim), slots[:, :kk]
+        scores = scores_from_negd(negd, Metric.COSINE)
+        return self._trim(*fetch_scores_ids(scores, slots), k)
+
+    def _search_gathered(self, tq, cand, k, metric, oversample=1):
         """Small-candidate-set regime: gather the rows, scan the tile."""
-        scores, local = scan_topk(
-            tq, self.codes[cand], self.scale[cand], self.sqnorm[cand],
-            self.valid[cand], k=min(k, cand.shape[0]), metric=metric,
-            compute_dtype=self.compute_dtype,
-        )
+        n = cand.shape[0]
+        if self.is_bq:
+            if metric != Metric.COSINE:
+                raise ValueError("BQ collections are cosine-only")
+            negh, local = bq_scan_neg_topk(
+                bq_encode(tq), self.codes[cand], self.valid[cand],
+                k=self._bq_shortlist(k, oversample, n))
+            return self._finish_bq(tq, negh, cand[local.long()], k)
+        if self.is_pq and not self.pq_cache:
+            if self.codebook is None:
+                return self._empty(tq.shape[0], k)
+            scores, local = pq_scan_topk(
+                tq, self.codes[cand], self.codebook, self.sqnorm[cand],
+                self.valid[cand], k=min(k, n), metric=metric,
+                compute_dtype=self.compute_dtype)
+        else:
+            scores, local = scan_topk(
+                tq, self.codes[cand], self.scale[cand], self.sqnorm[cand],
+                self.valid[cand], k=min(k, n), metric=metric,
+                compute_dtype=self.compute_dtype,
+            )
         return self._trim(*fetch_scores_ids(scores, cand[local.long()]), k)
 
     @staticmethod
@@ -372,17 +708,21 @@ class FlatStore:
     _SAVE_ROWS = 131_072  # rows fetched per device->host chunk on save
 
     @classmethod
-    def _write_rows(cls, f, t: torch.Tensor) -> None:
-        """Stream a tensor to ``f`` in row chunks, so the host never holds
-        more than one chunk of it."""
+    def _write_rows(cls, f, t) -> None:
+        """Stream a tensor (or a host array) to ``f`` in row chunks, so the
+        host never holds more than one chunk of it."""
         for i in range(0, t.shape[0], cls._SAVE_ROWS):
-            f.write(tensor_to_bytes(t[i:i + cls._SAVE_ROWS]))
+            part = t[i:i + cls._SAVE_ROWS]
+            f.write(np.ascontiguousarray(part).tobytes() if isinstance(part, np.ndarray)
+                    else tensor_to_bytes(part))
 
     @_locked
     def save(self, f: io.BufferedIOBase) -> None:
         """Binary snapshot, byte-compatible with the JAX package's:
-        magic, 8-byte big-endian header length, msgpack header, then the
-        raw codes / scale / sqnorm / valid bytes."""
+        magic, 8-byte big-endian header length, msgpack header (with a
+        ``"bq"`` / ``"pq"`` section, the codebook's bytes inside), then the
+        raw codes (PQ: the authoritative code rows) / scale / sqnorm /
+        valid bytes, then a BQ store's rerank copy and its scale."""
         self.sync()
         header = {
             "dim": self.dim,
@@ -393,43 +733,178 @@ class FlatStore:
             "free": self._free,
             "pks": [[pk, slot] for pk, slot in self.pk_to_slot.items()],
         }
+        if self.is_bq:
+            header["bq"] = {
+                "rerank": self.bq_rerank,
+                "oversample": self.bq_oversample,
+                "rerank_dtype": int(self.bq_rr_quant),
+            }
+        if self.is_pq:
+            cb = io.BytesIO()
+            if self.codebook is not None:
+                self.codebook.save(cb)
+            header["pq"] = {
+                "m": self.pq_m,
+                "centroids": self.pq_centroids,
+                "train_iters": self.pq_train_iters,
+                "opq_iters": self.pq_opq_iters,
+                "coarse": self.pq_coarse,
+                "cache": self.pq_cache,
+                "codebook": cb.getvalue(),
+            }
         hb = msgpack.packb(header, use_bin_type=True)
         f.write(_SNAPSHOT_MAGIC)
         f.write(len(hb).to_bytes(8, "big"))
         f.write(hb)
-        for t in (self.codes, self.scale, self.sqnorm, self.valid):
+        codes = self._pq_code_array() if self.is_pq else self.codes
+        for t in (codes, self.scale, self.sqnorm, self.valid):
             self._write_rows(f, t)
+        if self.bq_rerank:
+            # the sign bits are lossy; the rerank copy is authoritative
+            self._write_rows(f, self.rr_codes)
+            self._write_rows(f, self.rr_scale)
 
     @classmethod
-    def load(cls, f: io.BufferedIOBase, *, device="cuda") -> "FlatStore":
+    def load(
+        cls,
+        f: io.BufferedIOBase,
+        *,
+        device="cuda",
+        pq_cache: Optional[bool] = None,
+        pq_host_codes: Optional[bool] = None,
+    ) -> "FlatStore":
+        """Load a snapshot of either package. ``pq_cache`` overrides the
+        snapshot's; ``pq_host_codes=None`` keeps a PQ-cache store's code
+        table on the host when it passes :data:`PQ_HOST_CODES_BYTES`."""
         magic = f.read(len(_SNAPSHOT_MAGIC))
         if magic != _SNAPSHOT_MAGIC:
             raise ValueError("not a FlatStore snapshot")
         hlen = int.from_bytes(f.read(8), "big")
         header = msgpack.unpackb(f.read(hlen), raw=False)
-        for key, what in (("pq", "PQ"), ("bq", "BQ")):
-            if header.get(key) is not None:
-                raise _not_ported(what)
+        pq = header.get("pq")
+        bq = header.get("bq")
+        cap = header["capacity"]
+        if pq_cache is None:
+            pq_cache = pq.get("cache", True) if pq else True
+        if pq_host_codes is None:
+            width = pq["m"] + (2 if pq.get("coarse") else 0) if pq else 0
+            pq_host_codes = bool(pq and pq_cache and cap * width > PQ_HOST_CODES_BYTES)
         store = cls(
             header["dim"],
             metric=Metric.parse(header["metric"]),
             quantization=Quantization.parse(header["quantization"]),
             device=device,
+            pq_subspaces=pq["m"] if pq else None,
+            pq_centroids=pq["centroids"] if pq else 256,
+            pq_train_iters=pq["train_iters"] if pq else 15,
+            pq_opq_iters=pq.get("opq_iters", 0) if pq else 0,
+            pq_coarse=pq.get("coarse", 0) if pq else 0,
+            pq_cache=pq_cache,
+            pq_host_codes=pq_host_codes,
+            bq_rerank=bq.get("rerank", True) if bq else True,
+            bq_oversample=bq.get("oversample", 64) if bq else 64,
+            bq_rerank_dtype=Quantization.parse(
+                bq.get("rerank_dtype", int(Quantization.BF16))) if bq
+            else Quantization.BF16,
         )
-        cap = header["capacity"]
-        d = store.dim
-        qdt = store._qdtype
-        store.codes = tensor_from_bytes(
-            f.read(cap * d * qdt.itemsize), qdt, (cap, d)).to(store.device)
-        store.scale = tensor_from_bytes(
-            f.read(cap * 4), torch.float32, (cap, 1)).to(store.device)
-        store.sqnorm = tensor_from_bytes(
-            f.read(cap * 4), torch.float32, (cap,)).to(store.device)
-        store.valid = tensor_from_bytes(
-            f.read(cap), torch.bool, (cap,)).to(store.device)
+        if pq and pq["codebook"]:
+            store.codebook = PQCodebook.load(io.BytesIO(pq["codebook"]),
+                                             device=store.device)
+        width, qdt = store._row_width, store._qdtype
+        codes = tensor_from_bytes(f.read(cap * width * qdt.itemsize), qdt, (cap, width))
+        scale = tensor_from_bytes(f.read(cap * 4), torch.float32, (cap, 1))
+        sqnorm = tensor_from_bytes(f.read(cap * 4), torch.float32, (cap,))
+        valid = tensor_from_bytes(f.read(cap), torch.bool, (cap,))
         store.capacity = cap
+        store.valid = valid.to(store.device)
+        if store.pq_host:
+            store.pqcodes_host = codes.numpy()
+            store._rebuild_pq_cache()
+        elif store.pq_cache:
+            store.pqcodes = codes.to(store.device)
+            store._rebuild_pq_cache()
+        elif store.is_pq:
+            store.codes = codes.to(store.device)
+            store.scale = store._ones((cap, 1))
+            store.sqnorm = (pq_sqnorm(store.codes, store.codebook)
+                            if store.codebook is not None
+                            else store._zeros((cap,), torch.float32))
+        else:
+            store.codes = codes.to(store.device)
+            store.scale = scale.to(store.device)
+            store.sqnorm = sqnorm.to(store.device)
+        if store.bq_rerank:
+            rdt = storage_dtype(store.bq_rr_quant)
+            d = store.dim
+            store.rr_codes = tensor_from_bytes(
+                f.read(cap * d * rdt.itemsize), rdt, (cap, d)).to(store.device)
+            store.rr_scale = tensor_from_bytes(
+                f.read(cap * 4), torch.float32, (cap, 1)).to(store.device)
         store._next_slot = header["next_slot"]
         store._free = list(header["free"])
         store.pk_to_slot = {pk: slot for pk, slot in header["pks"]}
         store.slot_to_pk = {slot: pk for pk, slot in header["pks"]}
         return store
+
+    @classmethod
+    def adopt_pq(
+        cls,
+        codebook: PQCodebook,
+        pqcodes,
+        *,
+        metric: Metric = Metric.COSINE,
+        pq_cache: bool = True,
+        device="cuda",
+    ) -> "FlatStore":
+        """Adopt pre-encoded PQ code rows (``[N, code_width]`` uint8, N a
+        multiple of 8192; numpy or a tensor) as a live store whose primary
+        keys are the stringified row indices: the bulk path for corpora
+        encoded slab-wise with ``pq_encode``. A PQ-cache store builds its
+        f8 scan cache from the codes."""
+        n, cw = pqcodes.shape
+        if n % _CAPACITY_QUANTUM:
+            raise ValueError(
+                f"adopt_pq needs rows % {_CAPACITY_QUANTUM} == 0, got {n}")
+        coarse_c = 0 if codebook.coarse is None else int(codebook.coarse.shape[0])
+        m = cw - (2 if coarse_c else 0)
+        if m != codebook.m:
+            raise ValueError(
+                f"code width {cw} does not match codebook "
+                f"(m={codebook.m}, coarse={coarse_c})")
+        store = cls(
+            codebook.dim, metric=metric, quantization=Quantization.PQ,
+            device=device, pq_subspaces=m, pq_centroids=codebook.n_centroids,
+            pq_coarse=coarse_c, pq_cache=pq_cache,
+        )
+        store.capacity = n
+        store.codebook = codebook.to(store.device)
+        pqcodes = torch.as_tensor(pqcodes).to(store.device)
+        if store.pq_cache:
+            store.pqcodes = pqcodes
+            store._rebuild_pq_cache()
+        else:
+            store.codes = pqcodes
+            store.scale = store._ones((n, 1))
+            store.sqnorm = pq_sqnorm(pqcodes, store.codebook)
+        store.valid = torch.ones(n, dtype=torch.bool, device=store.device)
+        store.pk_to_slot = {str(i): i for i in range(n)}
+        store.slot_to_pk = {i: str(i) for i in range(n)}
+        store._next_slot = n
+        return store
+
+    _REBUILD_SLAB = 1 << 20  # host code rows uploaded per step
+
+    def _rebuild_pq_cache(self) -> None:
+        """Decompress the authoritative PQ codes into the f8 scan cache
+        (once per load). A host code table goes up a slab at a time."""
+        if self.codebook is None:
+            return
+        if not self.pq_host:
+            self.codes, self.scale, self.sqnorm = pq_cache_rows(
+                self.pqcodes, self.codebook)
+            return
+        parts = [pq_cache_rows(torch.from_numpy(
+                     self.pqcodes_host[off:off + self._REBUILD_SLAB]).to(self.device),
+                     self.codebook)
+                 for off in range(0, self.capacity, self._REBUILD_SLAB)]
+        self.codes, self.scale, self.sqnorm = (torch.cat(p) for p in zip(*parts))

@@ -49,6 +49,8 @@ class ServingConfig:
 
     scan_batch_max: int = 2048
     scan_batch_wait_ms: float = 2.0
+    # OPQ rounds for PQ collections (0 disables; ops/pq.py PQCodebook doc)
+    pq_opq_iters: int = 4
     # devices to shard each collection over; only 1 is ported yet
     shards: int = 1
     # comma-separated query-batch sizes searched at LoadCollection (plain

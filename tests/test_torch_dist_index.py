@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from coltt_tpu.ops import bq as jbq
 from coltt_tpu.ops import topk as jtopk
 from coltt_tpu.ops.distance import Metric as JMetric
 from coltt_tpu.ops.quant import Quantization as JQuant
@@ -40,7 +41,13 @@ from coltt_tpu_torch.ops import topk as ttopk
 from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.quant import Quantization
 from coltt_tpu_torch.parallel import dist_search as tds
-from coltt_tpu_torch.parallel.convert import flat_index_from_arrays, flat_index_to_arrays
+from coltt_tpu_torch.parallel.convert import (
+    flat_index_from_arrays,
+    flat_index_to_arrays,
+    pq_codebook_from_arrays,
+    pq_index_from_arrays,
+    pq_index_to_arrays,
+)
 
 torch.set_num_threads(2)
 
@@ -251,16 +258,128 @@ def test_unit_i8_requires_cosine_and_rerank(rng):
 
 def test_unported_paths_name_the_roadmap(rng):
     vecs = rng.standard_normal((64, 128)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 8"):
-        tds.DistributedFlatIndex("cpu", vecs, quantization=Quantization.BQ)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tds.DistributedFlatIndex.from_bq_codes("cpu", None, dim=128)
     with pytest.raises(NotImplementedError, match="item 12"):
         tds.DistributedFlatIndex(["cpu", "cpu"], vecs)
-    for fn, item in ((tds.sharded_bq_topk, "item 8"), (tds.sharded_pq_topk, "item 9"),
-                     (tds.sharded_cflat_topk, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tds.DistributedPQIndex(["cpu", "cpu"], vecs)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
+        tds.sharded_cflat_topk()
+    with pytest.raises(ValueError, match="cosine-only"):
+        tds.DistributedFlatIndex("cpu", vecs, metric=Metric.EUCLIDEAN,
+                                 quantization=Quantization.BQ)
+
+
+# -- BQ and PQ indexes ----------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def clustered():
+    """A cluster mixture (sign codes rank noise on i.i.d. rows) and its
+    exact cosine top-10."""
+    rng = np.random.default_rng(3)
+    centers = rng.standard_normal((64, D)).astype(np.float32)
+    rows = (centers[rng.integers(0, 64, N - 1000)]
+            + 0.35 * rng.standard_normal((N - 1000, D))).astype(np.float32)
+    queries = (centers[rng.integers(0, 64, 16)]
+               + 0.35 * rng.standard_normal((16, D))).astype(np.float32)
+    gt = jds.DistributedFlatIndex(_jmesh(), rows, metric=JMetric.COSINE,
+                                  quantization=JQuant.NONE)
+    return rows, queries, gt.search(queries, K)[1]
+
+
+@pytest.mark.parametrize("rerank", [True, False], ids=["bf16-rerank", "no-rerank"])
+def test_bq_index_matches_jax(clustered, rerank):
+    """Both constructors (vectors and pre-packed words) against the
+    reference's on a one-device mesh: words bit-identical, same ids and
+    scores (the Hamming ties rank the lower id first in both)."""
+    rows, queries, truth = clustered
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if rerank else (None, None)
+    j_idx = jds.DistributedFlatIndex(_jmesh(), rows, quantization=JQuant.BQ,
+                                     rerank_dtype=jdt)
+    t_idx = tds.DistributedFlatIndex("cpu", rows, quantization=Quantization.BQ,
+                                     rerank_dtype=tdt)
+    packed = np.asarray(jbq.bq_encode(jnp.asarray(rows)))
+    j_pk = jds.DistributedFlatIndex.from_bq_codes(
+        _jmesh(), packed, dim=D, rr_codes=rows if rerank else None)
+    t_pk = tds.DistributedFlatIndex.from_bq_codes(
+        "cpu", packed, dim=D, rr_codes=rows if rerank else None)
+    for t in (t_idx, t_pk):
+        assert t.codes.shape == (N, D // 32) and not t.valid[len(rows):].any()
+        np.testing.assert_array_equal(t.codes.numpy().view(np.uint32),
+                                      np.asarray(j_idx.codes))
+    js, ji = j_idx.search(queries, K, oversample=16)
+    for j, t in ((j_idx, t_idx), (j_pk, t_pk)):
+        ts, ti = t.search(queries, K, oversample=16)
+        np.testing.assert_allclose(ts, js, rtol=0, atol=1e-3)
+        _same_ids(ti, ji, ts, js)
+        np.testing.assert_array_equal(j.search(queries, K, oversample=16)[1], ji)
+    if rerank:
+        assert ttopk.compute_recall(ti, truth) >= 0.9
+    # the reference's state, carried across
+    arrays = _jax_arrays(j_idx)
+    carried = flat_index_from_arrays(**arrays, rerank_dtype=tdt, device="cpu")
+    cs, ci = carried.search(queries, K, oversample=16)
+    _same_ids(ci, ji, cs, js)
+    np.testing.assert_array_equal(flat_index_to_arrays(carried)["codes"].view(np.uint32),
+                                  arrays["codes"])
+
+
+def test_pq_index_matches_jax(clustered):
+    """DistributedPQIndex on the reference's codebook: codes equal up to
+    near-ties (tests/test_torch_pq.py's rule), and on the reference's own
+    codes the same ids and scores."""
+    rows, queries, truth = clustered
+    j_idx = jds.DistributedPQIndex(_jmesh(), rows, m=16, train_sample=4096,
+                                   opq_iters=2)
+    cb = j_idx.codebook
+    arrays = {"centroids": np.asarray(cb.centroids), "rotation": np.asarray(cb.rotation),
+              "coarse": None}
+    t_idx = tds.DistributedPQIndex("cpu", rows,
+                                   codebook=pq_codebook_from_arrays(**arrays, device="cpu"))
+    jcodes = np.asarray(j_idx.codes)
+    assert (t_idx.codes.numpy() == jcodes).all(axis=1).mean() >= 0.999
+    js, ji = j_idx.search(queries, K)
+    carried = pq_index_from_arrays(metric=Metric.COSINE, codes=jcodes,
+                                   sqnorm=np.asarray(j_idx.sqnorm),
+                                   valid=np.asarray(j_idx.valid), codebook=arrays,
+                                   device="cpu")
+    cs, ci = carried.search(queries, K)
+    np.testing.assert_allclose(cs, js, rtol=0, atol=1e-3)
+    _same_ids(ci, ji, cs, js)
+    back = pq_index_from_arrays(**pq_index_to_arrays(carried), device="cpu")
+    np.testing.assert_array_equal(back.search(queries, K)[1], ci)
+    ts, ti = t_idx.search(queries, K)
+    assert ttopk.compute_recall(ti, ji) >= 0.9
+
+
+def test_pq_cache_rerank_branch_matches_jax(clustered):
+    """sharded_scan_topk's PQ-cache branch: the f8 reconstruction cache's
+    shortlist (plain or K1), reranked against the exact reconstruction."""
+    from coltt_tpu.store.flat import FlatStore as JFlatStore
+
+    rows, queries, _ = clustered
+    js = JFlatStore(D, quantization=JQuant.PQ, pq_subspaces=16, pq_centroids=64,
+                    pq_train_iters=5, pq_opq_iters=2)
+    js.upsert_many([str(i) for i in range(len(rows))], rows)
+    js.sync()
+    cb = js.codebook
+    jq = np.asarray(jnp.asarray(queries) @ cb.rotation)
+    tcb = pq_codebook_from_arrays(np.asarray(cb.centroids), np.asarray(cb.rotation),
+                                  device="cpu")
+    host = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
+    codes = torch.from_numpy(np.array(js.codes).view(np.int8)).view(torch.float8_e4m3fn)
+    for fused in (False, True):
+        kw = dict(k=K, oversample=4, fused=fused)
+        js_, ji = map(np.asarray, jds.sharded_scan_topk(
+            _jmesh(), js.codes, js.scale, js.sqnorm, js.valid, jnp.asarray(jq),
+            pq_rerank=(js.pqcodes, cb.centroids, None), **kw))
+        ts, ti = tds.sharded_scan_topk(
+            "cpu", codes, host(js.scale), host(js.sqnorm), host(js.valid), host(jq),
+            pq_rerank=(host(js.pqcodes), tcb.centroids, None), **kw)
+        np.testing.assert_allclose(ts.numpy(), js_, rtol=0, atol=1e-3)
+        _same_ids(ti.numpy(), ji, ts.numpy(), js_)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tds.sharded_scan_topk("cpu", codes, None, None, None, host(jq), k=K,
+                              rr_codes=codes, pq_rerank=(None, None, None))
 
 
 def test_euclidean_index_matches_jax(rng):

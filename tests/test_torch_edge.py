@@ -196,10 +196,119 @@ def test_grpc_round_trip(edge_client):
     c.load_collection(NAME)
     _, _, ids, _ = c.search_batch(NAME, vecs[:8], limit=K, high_resource=True)
     assert "d0" not in ids and ids[K] == "d1"
-    with pytest.raises(RuntimeError, match="not ported"):
+    # PQ and BQ collections are served too (the flows below)
+    for q in (Quantization.PQ, Quantization.BQ):
         c.create_collection(CollectionSchema(
-            name="pq", dim=DIM, quantization=Quantization.PQ,
+            name=q.name.lower(), dim=DIM, quantization=q,
             fields=[FieldSchema("pk", FieldType.STRING, primary_key=True)]))
+        assert c.get_collection(q.name.lower()).load
+
+
+def _schema_of(name, dim, quant, field):
+    return CollectionSchema(
+        name=name, dim=dim, quantization=quant,
+        fields=[FieldSchema("pk", FieldType.STRING, primary_key=True),
+                FieldSchema(field, FieldType.STRING)])
+
+
+def _cross_load(tmp_path, name, check):
+    """Each package's engine loads the checkpoint the other flushed; the
+    loaded collection answers as its writer does (``check(writer,
+    reader)``)."""
+    j_reads_port = JEdgeEngine(JObjectStore(str(tmp_path / "port")), precompile_batches=())
+    t_reads_jax = EdgeEngine(LocalObjectStore(str(tmp_path / "jax")), device="cpu",
+                             warmup_batches=())
+    writers = _engines(tmp_path)
+    for writer, reader in ((writers[1], j_reads_port), (writers[0], t_reads_jax)):
+        writer.load_collection(name)
+        reader.load_collection(name)
+        check(writer, reader)
+
+
+def test_bq_collection_flow_both_engines(tmp_path, edge_client):
+    """tests/test_api.py's BQ flow: one-by-one Index, a self-match first
+    (exact bits + rerank), a filtered Search, the checkpoint round trip;
+    through the port's gRPC server and on the JAX engine, each engine then
+    loading the other's checkpoint."""
+    rng = np.random.default_rng(3)
+    vecs = rng.standard_normal((32, 64)).astype(np.float32)
+    name = "bqdocs"
+    schema = _schema_of(name, 64, Quantization.BQ, "lang")
+    c = edge_client
+    c.create_collection(schema)
+    assert c.get_collection(name).load
+    for i in range(32):
+        c.index(name, f"p{i}", vecs[i], {"lang": ["ko", "en"][i % 2]})
+    hits = c.search(name, vecs[7], limit=3)
+    assert hits[0]["id"] == "p7" and 0.0 <= hits[0]["score"] <= 100.1
+    expr = Filter("lang", Op.EQ, "ko")
+    hits = c.search(name, vecs[4], limit=8, filter_expression=expr)
+    assert hits and all(h["metadata"]["lang"] == "ko" for h in hits)
+    assert hits[0]["id"] == "p4"
+    c.flush(name)
+    c.release_collection(name)
+    c.load_collection(name)
+    assert c.search(name, vecs[9], limit=1)[0]["id"] == "p9"
+    c.delete_collection(name)
+
+    # the same flow on both engines, then each reads the other's objects
+    j, t = _engines(tmp_path)
+    j.create_collection(JSchema.from_dict(schema.to_dict()))
+    t.create_collection(schema)
+    for e in (j, t):
+        for i in range(32):
+            e.index(name, {"pk": f"p{i}", "lang": ["ko", "en"][i % 2]}, vecs[i])
+        assert e.search(name, vecs[7], limit=3)[0].id == "p7"
+        e.release_collection(name)
+
+    def check(writer, reader):
+        for v in (vecs[:8], vecs[20:24]):
+            _same(writer.search_batch(name, v, limit=K),
+                  reader.search_batch(name, v, limit=K))
+        hits = reader.search(name, vecs[4], limit=8, filter_expression=expr.to_dict()
+                             if isinstance(reader, JEdgeEngine) else expr)
+        assert hits[0].id == "p4" and all(h.metadata["lang"] == "ko" for h in hits)
+
+    _cross_load(tmp_path, name, check)
+
+
+def test_pq_collection_flow_both_engines(tmp_path):
+    """tests/test_edge_engine.py's PQ flow on both engines (each trains its
+    own codebook, with OPQ, on the first sync), then each engine loads the
+    other's checkpoint and answers exactly as the writer does."""
+    rng = np.random.default_rng(4)
+    centers = rng.standard_normal((8, 32)).astype(np.float32)
+    vecs = (centers[rng.integers(0, 8, 300)]
+            + 0.05 * rng.standard_normal((300, 32))).astype(np.float32)
+    mds = [{"pk": f"p{i}", "city": ["a", "b"][i % 2]} for i in range(300)]
+    name = "pqcol"
+    schema = _schema_of(name, 32, Quantization.PQ, "city")
+    j, t = _engines(tmp_path)
+    j.create_collection(JSchema.from_dict(schema.to_dict()))
+    t.create_collection(schema)
+    b = Filter("city", Op.EQ, "b")
+    for e in (j, t):
+        e.index_many(name, [dict(m) for m in mds], vecs)
+        for hr in (False, True):
+            assert "p11" in [h.id for h in e.search(name, vecs[11], limit=20,
+                                                    high_resource=hr)]
+        hits = e.search(name, vecs[11], limit=20, filter_expression=b.to_dict()
+                        if e is j else b)
+        assert hits and all(h.metadata["city"] == "b" for h in hits)
+        e.flush(name)
+        e.release_collection(name)
+        e.load_collection(name)
+        assert "p11" in [h.id for h in e.search(name, vecs[11], limit=20)]
+        e.release_collection(name)
+    assert t._collections == {} and t.get_collection(name)["size"] == 0
+
+    def check(writer, reader):
+        for hr in (False, True):
+            _same(writer.search_batch(name, vecs[:16], limit=K, high_resource=hr),
+                  reader.search_batch(name, vecs[:16], limit=K, high_resource=hr))
+        assert reader.get_collection(name)["size"] == 300
+
+    _cross_load(tmp_path, name, check)
 
 
 def test_unported_modes_raise():

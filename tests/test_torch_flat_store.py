@@ -24,7 +24,11 @@ from coltt_tpu.ops.quant import Quantization as JQuant
 from coltt_tpu.store.flat import FlatStore as JFlatStore
 from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.quant import Quantization
-from coltt_tpu_torch.store.convert import flat_store_from_arrays, flat_store_to_arrays
+from coltt_tpu_torch.store.convert import (
+    flat_store_from_arrays,
+    flat_store_to_arrays,
+    pq_codebook_from_arrays,
+)
 from coltt_tpu_torch.store.flat import FlatStore
 
 torch.set_num_threads(2)
@@ -181,14 +185,209 @@ def test_sync_while_searching_keeps_the_snapshot():
 
 
 def test_growth_and_unported_modes():
-    ts = FlatStore(D, quantization=Quantization.I8, device="cpu")
+    """Every mode grows past its first capacity, BQ and PQ included (both
+    ported now); BQ refuses a metric other than cosine, as the reference."""
     rng = np.random.default_rng(4)
-    ts.upsert_many([str(i) for i in range(8200)],
-                   rng.standard_normal((8200, D)).astype(np.float32))
-    assert ts.capacity == 16384
-    s, i = ts.search(rng.standard_normal((2, D)).astype(np.float32), 3, fused=True)
-    assert (i >= 0).all() and (i < 8200).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlatStore(D, quantization=Quantization.PQ, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlatStore(D, quantization=Quantization.BQ, device="cpu")
+    vecs = rng.standard_normal((8200, D)).astype(np.float32)
+    for quant, opts in ((Quantization.I8, {}), (Quantization.BQ, {}),
+                        (Quantization.PQ, dict(_PQ_BASE))):
+        ts = FlatStore(D, quantization=quant, device="cpu", **opts)
+        ts.upsert_many([str(i) for i in range(8200)], vecs)
+        s, i = ts.search(vecs[8199:8200], 3, fused=True, oversample=4)
+        assert ts.capacity == 16384, quant
+        assert (i >= 0).all() and (i < 8200).all() and i[0, 0] == 8199, quant
+    with pytest.raises(ValueError, match="cosine-only"):
+        FlatStore(D, quantization=Quantization.BQ, metric=Metric.EUCLIDEAN, device="cpu")
+    with pytest.raises(ValueError):
+        JFlatStore(D, quantization=JQuant.BQ, metric=int(Metric.EUCLIDEAN))
+
+
+# -- BQ and PQ stores ----------------------------------------------------------
+
+BQ_MODES = {
+    # name: (JAX options, port options)
+    "bf16-rerank": ({}, {}),
+    "f8-rerank": ({"bq_rerank_dtype": JQuant.F8},
+                  {"bq_rerank_dtype": Quantization.F8}),
+    "no-rerank": ({"bq_rerank": False}, {"bq_rerank": False}),
+}
+_PQ_BASE = dict(pq_subspaces=8, pq_centroids=64, pq_train_iters=5)
+PQ_MODES = {
+    "cache-opq": dict(_PQ_BASE, pq_opq_iters=2),
+    "adc": dict(_PQ_BASE, pq_cache=False),
+    "host-codes-residual": dict(_PQ_BASE, pq_host_codes=True, pq_coarse=16),
+}
+
+
+def _mutate_clustered(store, rng_seed=0, n=3000, grow=6000):
+    """Clustered upserts, a sync, deletes, overwrites, then enough rows to
+    grow past the first 8192-row capacity (the first sync trains PQ)."""
+    rng = np.random.default_rng(rng_seed)
+    centers = rng.standard_normal((32, D)).astype(np.float32)
+
+    def rows(m):
+        return (centers[rng.integers(0, 32, m)]
+                + 0.3 * rng.standard_normal((m, D))).astype(np.float32)
+
+    vecs = rows(n)
+    store.upsert_many([f"p{i}" for i in range(n)], vecs)
+    store.sync()
+    for i in range(0, n, 9):
+        store.delete(f"p{i}")
+    store.upsert_many([f"p{i}" for i in range(1, 100, 2)], rows(50))
+    store.upsert("late", rows(1)[0])
+    store.upsert_many([f"g{i}" for i in range(grow)], rows(grow))
+    store.sync()
+    return vecs
+
+
+def _jax_state(js: JFlatStore) -> dict:
+    """A JAX BQ / PQ store's state and options, for flat_store_from_arrays."""
+    out = _jax_arrays(js)
+    if js.is_bq:
+        out.update(bq_rerank=js.bq_rerank, bq_oversample=js.bq_oversample,
+                   bq_rerank_dtype=Quantization(int(js.bq_rr_quant)))
+        if js.bq_rerank:
+            out.update(rr_codes=np.asarray(js.rr_codes), rr_scale=np.asarray(js.rr_scale))
+    if js.is_pq:
+        cb = js.codebook
+        out.update(pq_subspaces=js.pq_m, pq_centroids=js.pq_centroids,
+                   pq_train_iters=js.pq_train_iters, pq_cache=js.pq_cache,
+                   pq_host_codes=js.pq_host, pq_opq_iters=js.pq_opq_iters,
+                   pq_coarse=js.pq_coarse,
+                   codebook={"centroids": np.asarray(cb.centroids),
+                             "rotation": None if cb.rotation is None else np.asarray(cb.rotation),
+                             "coarse": None if cb.coarse is None else np.asarray(cb.coarse)})
+        if js.pq_cache:
+            out["pqcodes"] = np.asarray(js._pq_code_array())
+    return out
+
+
+def _queries(seed, n=6):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((n, D)).astype(np.float16).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", list(BQ_MODES))
+def test_bq_store_matches_jax(mode):
+    jopt, topt = BQ_MODES[mode]
+    js = JFlatStore(D, quantization=JQuant.BQ, **jopt)
+    ts = FlatStore(D, quantization=Quantization.BQ, device="cpu", **topt)
+    vecs = _mutate_clustered(js)
+    _mutate_clustered(ts)
+    want, got = _jax_state(js), flat_store_to_arrays(ts)
+    # sign words and the rerank copy bit-identical, the slot maps equal
+    np.testing.assert_array_equal(got["codes"].view(np.uint32), want["codes"])
+    if "rr_codes" in want:
+        np.testing.assert_array_equal(
+            got["rr_codes"].view(np.uint8),
+            np.ascontiguousarray(want["rr_codes"]).view(np.uint8))
+        np.testing.assert_array_equal(got["rr_scale"], want["rr_scale"])
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    assert got["pk_to_slot"] == want["pk_to_slot"] and ts.capacity == js.capacity == 16384
+    assert ts.memory_bytes == js.memory_bytes
+    np.testing.assert_allclose(ts.get_vector("p1"), js.get_vector("p1"), rtol=1e-6)
+
+    q = _queries(1)
+    q[0] = vecs[4]
+    for os_ in (1, 8):
+        assert_same_search(js.search(q, 10, oversample=os_),
+                           ts.search(q, 10, oversample=os_))
+    few = np.arange(0, 900, 3, dtype=np.int32)
+    many = np.arange(0, 8000, dtype=np.int32)
+    for cand in (few, many):
+        assert_same_search(js.search(q, 10, candidates=cand),
+                           ts.search(q, 10, candidates=cand))
+    # the same state carried across searches the same
+    carried = flat_store_from_arrays(**want, device="cpu")
+    assert_same_search(js.search(q, 10), carried.search(q, 10))
+
+    # snapshots: the same bytes, loading in the other package
+    jbuf, tbuf = io.BytesIO(), io.BytesIO()
+    js.save(jbuf)
+    ts.save(tbuf)
+    assert jbuf.getvalue() == tbuf.getvalue()
+    back = JFlatStore.load(io.BytesIO(tbuf.getvalue()))
+    loaded = FlatStore.load(io.BytesIO(jbuf.getvalue()), device="cpu")
+    assert loaded.bq_rerank == ts.bq_rerank and loaded.bq_rr_quant == ts.bq_rr_quant
+    assert_same_search(back.search(q, 10), loaded.search(q, 10))
+
+
+def _pq_pair(opts):
+    """A JAX PQ store that trained on its first sync, and a port store
+    that took the same mutations with the reference's codebook."""
+    js = JFlatStore(D, quantization=JQuant.PQ, **opts)
+    _mutate_clustered(js)
+    state = _jax_state(js)
+    ts = FlatStore(D, quantization=Quantization.PQ, device="cpu", **opts)
+    ts.codebook = pq_codebook_from_arrays(**state["codebook"], device="cpu")
+    _mutate_clustered(ts)
+    return js, ts, state
+
+
+@pytest.mark.parametrize("mode", list(PQ_MODES))
+def test_pq_store_matches_jax(mode):
+    js, ts, want = _pq_pair(PQ_MODES[mode])
+    got = flat_store_to_arrays(ts)
+    key = "pqcodes" if js.pq_cache else "codes"
+    same_rows = (got[key] == want[key]).all(axis=1)
+    assert same_rows.mean() >= 0.999, same_rows.mean()  # near ties may differ
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+    assert got["pk_to_slot"] == want["pk_to_slot"] and ts.capacity == js.capacity
+    assert ts.memory_bytes == js.memory_bytes
+    np.testing.assert_allclose(ts.get_vector("p1"), js.get_vector("p1"), atol=1e-5)
+
+    # searches on one state: the JAX store's, carried across
+    carried = flat_store_from_arrays(**want, device="cpu")
+    q = _queries(2)
+    for os_ in (1, 4):
+        for fused in (False, True):
+            assert_same_search(js.search(q, 10, oversample=os_, fused=fused),
+                               carried.search(q, 10, oversample=os_, fused=fused))
+    few = np.arange(0, 900, 3, dtype=np.int32)
+    many = np.arange(0, 8000, dtype=np.int32)
+    for cand in (few, many):
+        assert_same_search(js.search(q, 10, candidates=cand, oversample=4),
+                           carried.search(q, 10, candidates=cand, oversample=4))
+    s, i = carried.search(q, 10, candidates=few, oversample=4)
+    assert set(i[i >= 0].tolist()) <= set(few.tolist())
+
+    # snapshots load in the other package and return the same ids
+    jbuf, tbuf = io.BytesIO(), io.BytesIO()
+    js.save(jbuf)
+    ts.save(tbuf)
+    loaded = FlatStore.load(io.BytesIO(jbuf.getvalue()), device="cpu")
+    # a small code table stays on the device unless the load asks otherwise
+    assert loaded.pq_cache == js.pq_cache and not loaded.pq_host
+    assert_same_search(js.search(q, 10, oversample=4), loaded.search(q, 10, oversample=4))
+    host = FlatStore.load(io.BytesIO(jbuf.getvalue()), device="cpu", pq_host_codes=True)
+    assert host.pq_host == js.pq_cache
+    assert_same_search(js.search(q, 10, oversample=4), host.search(q, 10, oversample=4))
+    back = JFlatStore.load(io.BytesIO(tbuf.getvalue()))
+    assert_same_search(back.search(q, 10, oversample=4), ts.search(q, 10, oversample=4))
+    # the snapshot's own settings can be overridden at load
+    adc = FlatStore.load(io.BytesIO(jbuf.getvalue()), device="cpu", pq_cache=False)
+    assert not adc.pq_cache and adc.codes.dtype == torch.uint8
+
+
+def test_pq_store_trains_on_first_sync_and_bulk_builds():
+    """A port PQ store trains its own codebook on its first synced batch;
+    bulk_build and adopt_pq give the same state as staged upserts."""
+    rng = np.random.default_rng(5)
+    vecs = rng.standard_normal((3000, D)).astype(np.float32)
+    pks = [f"p{i}" for i in range(3000)]
+    staged = FlatStore(D, quantization=Quantization.PQ, device="cpu", **PQ_MODES["cache-opq"])
+    staged.upsert_many(pks, vecs)
+    staged.sync()
+    assert staged.codebook is not None and staged.codebook.rotation is not None
+    bulk = FlatStore(D, quantization=Quantization.PQ, device="cpu", **PQ_MODES["cache-opq"])
+    bulk.codebook = staged.codebook
+    bulk.bulk_build(pks, vecs)
+    np.testing.assert_array_equal(bulk.pqcodes[:3000].numpy(), staged.pqcodes[:3000].numpy())
+    adopted = FlatStore.adopt_pq(staged.codebook, staged.pqcodes, device="cpu")
+    q = vecs[:4]
+    for store in (bulk, adopted):
+        np.testing.assert_array_equal(store.search(q, 5, oversample=4)[1][:, 0],
+                                      staged.search(q, 5, oversample=4)[1][:, 0])
+    assert [staged.slot_to_pk[int(s)] for s in staged.search(q, 1, oversample=4)[1][:, 0]] \
+        == pks[:4]

@@ -1,0 +1,55 @@
+"""The port never loads JAX nor the JAX package.
+
+Every module of ``coltt_tpu_torch`` is imported in a fresh interpreter,
+which must then hold neither ``jax`` nor ``coltt_tpu`` (nor any of their
+submodules) in ``sys.modules``; and ``chip_smoke.py``, which runs where no
+JAX is wanted, imports neither name anywhere in its code.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BANNED = ("jax", "jaxlib", "coltt_tpu")
+
+_PROBE = """
+import importlib, pkgutil, sys
+import coltt_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(coltt_tpu_torch.__path__, "coltt_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+banned = {banned!r}
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
+print(len(names), loaded)
+sys.exit(1 if loaded else 0)
+"""
+
+
+def _banned(name: str) -> bool:
+    return name.split(".")[0] in BANNED
+
+
+def test_port_modules_never_load_jax():
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [REPO, os.environ.get("PYTHONPATH")])))
+    proc = subprocess.run([sys.executable, "-c", _PROBE.format(banned=BANNED)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    count = int(proc.stdout.split()[0])
+    assert count >= 30, proc.stdout  # every module was walked
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert names and not [n for n in names if _banned(n)], names
+    assert any(n.startswith("coltt_tpu_torch") for n in names)

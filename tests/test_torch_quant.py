@@ -74,8 +74,18 @@ def test_cosine_score_delta_under_one_point(q, dim, rng):
     assert delta <= 1.0, f"{q.name} dim={dim}: max score delta {delta}"
 
 
-def test_sparse_codecs_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        storage_dtype(Quantization.PQ)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize(torch.zeros(2, 8), Quantization.BQ)
+@pytest.mark.parametrize("q", [Quantization.PQ, Quantization.BQ], ids=lambda q: q.name)
+def test_sparse_codecs_not_ported(q):
+    """PQ and BQ are no dense codecs (ops.pq / ops.bq encode them): both
+    packages refuse them in storage_dtype and quantize with ValueError."""
+    from coltt_tpu.ops.quant import storage_dtype as j_storage_dtype
+
+    for dense_only in ((lambda: j_storage_dtype(JQuant(int(q))), lambda: storage_dtype(q)),
+                       (lambda: j_quantize(jnp.zeros((2, 8)), JQuant(int(q))),
+                        lambda: quantize(torch.zeros(2, 8), q))):
+        errors = []
+        for fn in dense_only:
+            with pytest.raises(Exception) as info:
+                fn()
+            errors.append(type(info.value))
+        assert errors == [ValueError, ValueError]

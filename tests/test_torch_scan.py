@@ -474,6 +474,33 @@ def test_wrapper_counts_only_kernel_launches(rng):
     assert fs.binmax_scan.launches == before
 
 
+@pytest.mark.parametrize("case", ["integer-ties", "gaussian", "all-invalid", "narrow"])
+def test_stable_topk_matches_lax_top_k(rng, case):
+    """The port's one tie rule against ``lax.top_k``: values and positions
+    equal at every rank, equal values by the lower position, on rows wide
+    enough for torch.topk (and narrow ones, one stable sort); without
+    ``exact``, the values still equal at every rank."""
+    import jax
+
+    from coltt_tpu_torch.ops.topk import stable_topk
+
+    n = 1000 if case == "narrow" else 20000
+    if case == "gaussian":
+        vals = rng.standard_normal((6, n)).astype(np.float32)
+    else:
+        vals = -rng.integers(0, 40, (6, n)).astype(np.float32)
+    vals[:, rng.integers(0, n, 300)] = -np.inf
+    if case == "all-invalid":
+        vals[2:] = -np.inf
+    for k in (1, 37, 640):
+        want_v, want_i = map(np.asarray, jax.lax.top_k(jnp.asarray(vals), k))
+        got_v, got_i = stable_topk(torch.from_numpy(vals), k)
+        np.testing.assert_array_equal(got_v.numpy(), want_v)
+        np.testing.assert_array_equal(got_i.numpy(), want_i)
+        loose_v, _ = stable_topk(torch.from_numpy(vals), k, exact=False)
+        np.testing.assert_array_equal(loose_v.numpy(), want_v)
+
+
 # -- the CUDA kernel against its plain version (needs a card) ----------------
 
 @pytest.fixture
