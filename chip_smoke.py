@@ -88,8 +88,29 @@ Phases (each exits non-zero on failure):
    ``edge_pq`` count is read after the edge SearchBatches alone; the
    store-level searches after them (QPS, p50, one round of high_resource
    and one of ADC searches under ``torch.profiler``) count their own.
-   Flush / Release / Load (the cache rebuild timed) must return the same
-   ids.
+   The collection's snapshot loaded with ``pq_host_codes`` (the code table
+   on the host, the rerank's rows gathered there) is searched as
+   high_resource and held to the same recall limit. Flush / Release /
+   Load (the cache rebuild timed) must return the same ids.
+7. CFLAT (experimental mode). The store at ``bench_cflat.py``'s size:
+   1,048,576 records of a 768d and a 256d gaussian field made on the card,
+   F8, cosine, filled through ``multivec_store_from_arrays``;
+   ``search_batch`` at Q=512, ratios 70/30: recall@10 >= 0.95 against the
+   f32 weighted sum over the dequantized codes (TF32 off; recall against
+   the f32 rows printed), no slot past the records, descending scores, a
+   single ``search`` equal to its batch row; queued QPS (depth 8) and p50,
+   one queued round under ``torch.profiler`` (device ms of the products,
+   the selection and the elementwise passes), and one field's product
+   timed in both forms (bf16 operands widened to f32, and
+   ``torch.mm(..., out_dtype=float32)``). Then the experimental server:
+   two 768d Vector fields and a tag, F8, 262,144 records through BulkIndex
+   in 65,536-row RPCs; VectorSearchBatch recall@10 >= 0.95 against the
+   dequantized weighted sum, VectorSearch equal to its batch row, an
+   ``include_or_not=false`` field equal to leaving it out, an Index delete
+   gone from every later result, Flush / Release / Load returning the same
+   ids, and VectorSearchBatch p50 and QPS. CFLAT launches neither K1 nor
+   K2 (its weighted sum needs every field's score of a row first); both
+   counts must read 0 after the phase.
 
 Each path's launch counts are set to 0 just before it is driven and
 read just after.
@@ -101,6 +122,7 @@ result.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -127,6 +149,10 @@ SERVING_N = 1 << 20  # the store's capacity at 1M rows
 INDEX_N = 1_003_520  # the flat index's rows at 1M: padded to 4096
 OVERSAMPLE = 4
 BQ_OVERSAMPLE = 16  # the BQ index's shortlist: k x 16
+CFLAT_N = 1 << 20  # phase 7's store: bench_cflat's 1,048,576 records
+CFLAT_Q = 512
+GRPC_CFLAT_N = 262_144  # phase 7's experimental collection, ingested over gRPC
+GRPC_CFLAT_CHUNK = 65_536
 K1_EDGE_DIMS = (128, 768, 2048, 3072, 6144)  # int8 codes: any D % 128 == 0
 K2_EDGE_DIMS = (128, 768, 2048)  # K2 stops at D=2048 (its packed key)
 K1_SOURCES = {"int8-wgmma": "coltt_tpu_torch/csrc/binmax_scan.cu",
@@ -861,29 +887,32 @@ def phase_flat_index(data, recall_server, device="cuda"):
 
 # -- phases 5 and 6 ------------------------------------------------------------
 
-def _edge_server(tmp, device):
-    """A started edge server, its servicer's engine and a client on it."""
+def _grpc_server(tmp, device, mode="edge"):
+    """A started server of ``mode`` (edge or experimental), its servicer's
+    engine and a client on it. Messages up to 512 MB: a 65,536-row
+    BulkIndex of two 768d fields is 403 MB."""
     import grpc
-    from coltt_tpu_torch.api.client import EdgeClient
+    from coltt_tpu_torch.api.client import EdgeClient, ExperimentalClient
     from coltt_tpu_torch.api.server import build_servicer, create_server
     from coltt_tpu_torch.utils.config import Config
 
     cfg = Config()
     cfg.root_layer.bind_address = "127.0.0.1:0"
     cfg.root_layer.prof_address = "127.0.0.1:0"
-    cfg.root_layer.max_recv_msg_size = 256 << 20
-    cfg.root_layer.max_send_msg_size = 256 << 20
+    cfg.root_layer.max_recv_msg_size = 512 << 20
+    cfg.root_layer.max_send_msg_size = 512 << 20
     cfg.storage.data_dir = os.path.join(tmp, "data")
     cfg.storage.object_store_root = os.path.join(tmp, "objects")
     cfg.serving.device = device
-    servicer = build_servicer("edge", cfg)
+    servicer = build_servicer(mode, cfg)
     server = create_server(servicer, cfg)
     server.start()
     channel = grpc.insecure_channel(
         f"127.0.0.1:{server.bound_port}",
-        options=[("grpc.max_send_message_length", 256 << 20),
-                 ("grpc.max_receive_message_length", 256 << 20)])
-    return server, channel, servicer.engine, EdgeClient(channel)
+        options=[("grpc.max_send_message_length", 512 << 20),
+                 ("grpc.max_receive_message_length", 512 << 20)])
+    client = ExperimentalClient if mode == "experimental" else EdgeClient
+    return server, channel, servicer.engine, client(channel)
 
 
 def _ingest(c, name, x_host, what):
@@ -1018,7 +1047,7 @@ def phase_bq(tmp, device="cuda"):
     x_host = rr.to(torch.float32).cpu().numpy()
     q_host = queries.cpu().numpy()
     del packed, rr
-    server, channel, _, c = _edge_server(tmp, device)
+    server, channel, _, c = _grpc_server(tmp, device)
     try:
         name = "bq"
         _ingest(c, name, x_host, Quantization.BQ)
@@ -1063,7 +1092,7 @@ def phase_pq(tmp, device="cuda"):
     log(f"[pq] {SERVING_N} x {DIM} mixture rows (spectrum i^-0.5) made and "
         f"ground-truthed: {time.perf_counter() - t0:.2f} s")
 
-    server, channel, engine, c = _edge_server(tmp, device)
+    server, channel, engine, c = _grpc_server(tmp, device)
     try:
         name = "pq"
         _ingest(c, name, x_host, Quantization.PQ)
@@ -1106,10 +1135,22 @@ def phase_pq(tmp, device="cuda"):
         adc_store = FlatStore.adopt_pq(cb, store.pqcodes[:SERVING_N], pq_cache=False,
                                        device=dev)
         _, ids_adc = adc_store.search(q_host, K)
+        # the same codes with the code table on the host: the collection's
+        # snapshot loaded with pq_host_codes, searched as high_resource
+        snap = io.BytesIO()
+        store.save(snap)
+        host_store = FlatStore.load(io.BytesIO(snap.getvalue()), device=dev,
+                                    pq_host_codes=True)
+        del snap
+        check(host_store.pq_host and host_store.pqcodes is None,
+              "pq: the host-codes store keeps its code table on the card")
+        _, ids_host = host_store.search(q_host, K, fused=True, oversample=OVERSAMPLE)
+        del host_store
         recalls = {}
         for what, ids in (("high_resource (K1 f8 + rerank)", ids_hr),
                           ("plain (f8 scan + rerank)", ids_plain),
-                          ("ADC (pq_cache=False)", ids_adc)):
+                          ("ADC (pq_cache=False)", ids_adc),
+                          ("host codes (K1 f8 + host-gathered rerank)", ids_host)):
             r_adc, r_f32 = compute_recall(ids, adc_truth), compute_recall(ids, truth)
             recalls[what] = {"vs_exact_adc": r_adc, "vs_f32": r_f32}
             log(f"[pq] {what}: recall@{K} vs exact ADC {r_adc:.4f}, vs f32 {r_f32:.4f}")
@@ -1156,6 +1197,228 @@ def phase_pq(tmp, device="cuda"):
             "k1_launches": launches, "k1_launches_store_searches": store_launches}
 
 
+# -- phase 7 -------------------------------------------------------------------
+
+def _kernel_class(name: str) -> str:
+    """A profiled kernel's part of a CFLAT search: the per-field products
+    (cuBLAS), the selection (top-k and sorts), or an elementwise pass of
+    the epilogue and the weighted sum."""
+    low = name.lower()
+    if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet")):
+        return "products"
+    if any(s in low for s in ("topk", "sort", "radix")):
+        return "selection"
+    return "elementwise"
+
+
+def _same_row(single, batch, what):
+    """A query searched alone (k hits) equals its batch row, fetched with
+    k + 1 hits: scores within 1e-3, ids equal except where two
+    neighbouring batch scores, the (k+1)-th included, are within 1e-3 of
+    each other (the two sums run over other shapes)."""
+    (s1, i1), (sb, ib) = single, batch
+    k = len(s1)
+    check(len(sb) == k + 1, f"{what}: the batch row needs k + 1 hits")
+    check(np.allclose(s1, sb[:k], rtol=0, atol=1e-3), f"{what}: scores {s1} != {sb[:k]}")
+    for r in np.nonzero(np.asarray(i1) != np.asarray(ib[:k]))[0]:
+        near = [abs(sb[r] - sb[j]) <= 1e-3 for j in (r - 1, r + 1) if 0 <= j < len(sb)]
+        check(any(near), f"{what}: id at rank {r} differs")
+
+
+def _product_times(q, codes):
+    """ms of one field's [Q, D] x [D, N] product with bf16 operands and an
+    f32 result, the two forms: both operands widened back to f32 (the plain
+    scan's form, exact products summed in f32, TF32 off) and
+    ``torch.mm(..., out_dtype=torch.float32)`` on the bf16 operands; each
+    with the operands' conversion from the stored codes, and without it.
+    Returns the times and the largest difference between the two
+    results."""
+    import torch
+
+    bf, f32 = torch.bfloat16, torch.float32
+    qb, cb = q.to(bf), codes.to(bf)
+    qw, cw = qb.to(f32), cb.to(f32)
+    diff = float((torch.mm(qb, cb.t(), out_dtype=f32) - qw @ cw.t()).abs().max())
+    ms = timed(lambda: q.to(bf).to(f32) @ codes.to(bf).to(f32).t(),
+               lambda: torch.mm(q.to(bf), codes.to(bf).t(), out_dtype=f32),
+               lambda: qw @ cw.t(),
+               lambda: torch.mm(qb, cb.t(), out_dtype=f32))
+    return dict(max_abs_diff=diff, widened_ms=ms[0], out_dtype_ms=ms[1],
+                widened_product_only_ms=ms[2], out_dtype_product_only_ms=ms[3])
+
+
+def phase_cflat(tmp, device="cuda"):
+    """Phase 7: CFLAT at the bench's size, then the experimental server."""
+    import torch
+    from coltt_tpu_torch import bench
+    from coltt_tpu_torch import bench_cflat as bc
+    from coltt_tpu_torch.index.schema import CollectionSchema, FieldSchema, FieldType
+    from coltt_tpu_torch.ops import fused_scan as fs
+    from coltt_tpu_torch.ops.quant import Quantization, dequantize
+    from coltt_tpu_torch.ops.topk import compute_recall, fetch_scores_ids
+
+    dev = torch.device(device)
+    fs.reset_launch_counts()  # this path's counts: CFLAT runs neither kernel
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = bc.make_rows(CFLAT_N, gen)
+    store = bc.build_store(rows, dev)
+    width = sum(bc.FIELDS.values())
+    queries = torch.randn((CFLAT_Q, width), generator=gen, device=dev)
+    q_batches = [torch.randn((CFLAT_Q, width), generator=gen, device=dev)
+                 for _ in range(bc.DEPTH)]
+    qf = dict(zip(bc.FIELDS, bc.split(queries)))
+    q_host = {f: q.cpu().numpy() for f, q in qf.items()}
+    log(f"[cflat] {CFLAT_N} x {bc.FIELDS} gaussian rows made on the card, F8 "
+        f"store through multivec_store_from_arrays from device tensors: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    # k + 1 hits, so that a single search's last hit is checked too
+    scores1, slots1 = store.search_batch(
+        [(f, q_host[f], bc.RATIOS[f]) for f in bc.FIELDS], K + 1)
+    first_s = time.perf_counter() - t0
+    scores, slots = scores1[:, :K], slots1[:, :K]
+    check(scores.shape == (CFLAT_Q, K) and np.isfinite(scores).all(),
+          "cflat: non-finite or misshapen scores")
+    check(((slots >= 0) & (slots < CFLAT_N)).all(), "cflat: a slot past the records")
+    check((scores[:, :-1] >= scores[:, 1:]).all(), "cflat: scores not descending")
+    deq_truth = bc.weighted_truth(
+        qf, lambda f, lo, hi: dequantize(store.codes[f][lo:hi], store.scale[f][lo:hi]),
+        CFLAT_N)
+    f32_truth = bc.weighted_truth(qf, lambda f, lo, hi: rows[f][lo:hi], CFLAT_N)
+    r_deq, r_f32 = compute_recall(slots, deq_truth), compute_recall(slots, f32_truth)
+    log(f"[cflat] search_batch Q={CFLAT_Q} ratios 70/30 (first {first_s:.2f} s): "
+        f"recall@{K} {r_deq:.4f} vs the f32 weighted sum of the dequantized codes, "
+        f"{r_f32:.4f} vs the f32 rows")
+    check(r_deq >= 0.95, f"cflat: recall {r_deq} < 0.95 vs the dequantized sum")
+    for r in range(4):
+        single = store.search([(f, q_host[f][r], bc.RATIOS[f]) for f in bc.FIELDS], K)
+        _same_row(single, (scores1[r], slots1[r]), f"cflat query {r}")
+    dispatch = bc.dispatcher(store)
+    warmup_s, p50_ms, qps, qps_rounds = bench.time_dispatch(dispatch, q_batches)
+    log(f"[cflat] store, Q={CFLAT_Q} queued depth {bc.DEPTH}: {qps:.1f} QPS (rounds "
+        f"{[round(x, 1) for x in qps_rounds]}), p50 {p50_ms:.3f} ms; search == "
+        f"its batch row for 4 queries")
+    prof = None
+    if dev.type == "cuda":
+        prof = bench.profile_round(
+            lambda: [fetch_scores_ids(*dispatch(q)) for q in q_batches], top=64)
+        parts = {}
+        for name, ms in prof["device_ms_by_kernel"].items():
+            parts[_kernel_class(name)] = round(parts.get(_kernel_class(name), 0.0) + ms, 3)
+        prof["device_ms_by_part"] = parts
+        log(f"[cflat] one queued round of {bc.DEPTH} x {CFLAT_Q} queries under "
+            f"torch.profiler: {json.dumps(prof)}")
+        product = _product_times(qf["semantic"], store.codes["semantic"])
+        log(f"[cflat] the semantic field's product, Q={CFLAT_Q} x N={CFLAT_N} x "
+            f"D=768, f8 codes, bf16 operands, f32 result: {json.dumps(product)}")
+    else:
+        product = None
+    del store, rows, q_batches
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) the experimental server over gRPC
+    server, channel, engine, c = _grpc_server(tmp, device, mode="experimental")
+    try:
+        name = "cflat"
+        fields = ("semantic_vec", "title_vec")
+        ratios = dict(zip(fields, (70.0, 30.0)))
+        c.create_collection(CollectionSchema(
+            name=name, dim=DIM, quantization=Quantization.F8,
+            fields=[FieldSchema(f, FieldType.VECTOR) for f in fields]
+            + [FieldSchema("tag", FieldType.STRING)]))
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        x = {f: torch.randn((GRPC_CFLAT_N, DIM), generator=g, device=dev).cpu().numpy()
+             for f in fields}
+        qs = {f: torch.randn((CFLAT_Q, DIM), generator=g, device=dev).cpu().numpy()
+              for f in fields}
+        t0 = time.perf_counter()
+        for lo in range(0, GRPC_CFLAT_N, GRPC_CFLAT_CHUNK):
+            hi = min(GRPC_CFLAT_N, lo + GRPC_CFLAT_CHUNK)
+            c.bulk_index(name, [str(i) for i in range(lo, hi)],
+                         {f: x[f][lo:hi] for f in fields},
+                         [{"tag": f"t{i % TAGS}"} for i in range(lo, hi)])
+        ingest_s = time.perf_counter() - t0
+        check(c.get_collection(name).collection_size == GRPC_CFLAT_N,
+              "cflat: size after BulkIndex")
+        log(f"[cflat] BulkIndex {GRPC_CFLAT_N} records x 2 x {DIM}d in "
+            f"{GRPC_CFLAT_N // GRPC_CFLAT_CHUNK} RPCs: {ingest_s:.2f} s = "
+            f"{GRPC_CFLAT_N / ingest_s:.0f} rows/s (each RPC quantizes its rows "
+            f"on the card)")
+        del x
+
+        query = [(f, qs[f], True, ratios[f]) for f in fields]
+
+        def batch_ids(qf_, k=K):
+            counts, scores_, ids, _ = c.vector_search_batch(name, qf_, top_k=k)
+            check(counts == [k] * CFLAT_Q, f"cflat: counts {set(counts)}")
+            s = np.asarray(scores_).reshape(CFLAT_Q, k)
+            check(np.isfinite(s).all() and (s[:, :-1] >= s[:, 1:]).all(),
+                  "cflat: VectorSearchBatch scores not finite and descending")
+            return s, np.array([int(p) for p in ids]).reshape(CFLAT_Q, k)
+
+        s_b1, ids_b1 = batch_ids(query, K + 1)  # k + 1: see _same_row
+        s_b, ids_b = s_b1[:, :K], ids_b1[:, :K]
+        store = engine._collections[name].store
+        truth = bc.weighted_truth(
+            {f: torch.from_numpy(qs[f]).to(dev) for f in fields},
+            lambda f, lo, hi: dequantize(store.codes[f][lo:hi], store.scale[f][lo:hi]),
+            GRPC_CFLAT_N, ratios=ratios)
+        recall = compute_recall(ids_b, truth)
+        log(f"[cflat] VectorSearchBatch Q={CFLAT_Q} ratios 70/30: recall@{K} "
+            f"{recall:.4f} vs the f32 weighted sum of the dequantized codes")
+        check(recall >= 0.95, f"cflat: VectorSearchBatch recall {recall} < 0.95")
+        for r in range(3):
+            hits = c.vector_search(name, [(f, qs[f][r], True, ratios[f]) for f in fields],
+                                   top_k=K)
+            _same_row((np.array([h["score"] for h in hits]),
+                       np.array([int(h["id"]) for h in hits])),
+                      (s_b1[r], ids_b1[r]), f"cflat VectorSearch {r}")
+        only = batch_ids([(fields[0], qs[fields[0]], True, 100.0)])
+        off = batch_ids([(fields[0], qs[fields[0]], True, 100.0),
+                         (fields[1], qs[fields[1]], False, 0.0)])
+        check((only[1] == off[1]).all() and (only[0] == off[0]).all(),
+              "cflat: an include_or_not=false field changed the result")
+        victim = str(ids_b[0, 0])
+        c.index(name, victim, delete=True)
+        s_d, ids_d = batch_ids(query)
+        check(int(victim) not in ids_d, "cflat: a deleted id came back")
+        check(ids_d[0, 0] == ids_b[0, 1], "cflat: query 0's second hit did not move up")
+        t0 = time.perf_counter()
+        c.flush(name)
+        c.release_collection(name)
+        check(not c.get_collection(name).load, "cflat: still loaded")
+        c.load_collection(name)
+        reload_s = time.perf_counter() - t0
+        check((batch_ids(query)[1] == ids_d).all(),
+              "cflat: VectorSearchBatch after reload returned other ids")
+        log(f"[cflat] VectorSearch == its batch row (3 queries), include_or_not=false "
+            f"== field left out, a deleted id gone from every result, Flush + "
+            f"Release + Load {reload_s:.2f} s: same ids")
+        ts = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            c.vector_search_batch(name, query, top_k=K)
+            ts.append(time.perf_counter() - t0)
+        grpc_p50 = statistics.median(ts) * 1e3
+        grpc_qps = CFLAT_Q * REPS / sum(ts)
+        log(f"[cflat] VectorSearchBatch Q={CFLAT_Q} over gRPC, {REPS} in a row: "
+            f"p50 {grpc_p50:.1f} ms, {grpc_qps:.1f} QPS")
+    finally:
+        channel.close()
+        server.stop(None)
+    launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
+    check(launches == {"K1": 0, "K2": 0}, f"cflat: launched {launches}")
+    return {"store": {"recall_deq": r_deq, "recall_f32": r_f32, "qps": qps,
+                      "p50_ms": p50_ms, "warmup_s": warmup_s, "profile": prof,
+                      "product": product},
+            "grpc": {"ingest_rows_per_s": GRPC_CFLAT_N / ingest_s, "recall": recall,
+                     "p50_ms": grpc_p50, "qps": grpc_qps, "reload_s": reload_s},
+            "launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1187,6 +1450,7 @@ def main() -> int:
         del data
         bq_run = phase_bq(os.path.join(tmp, "bq"))
         pq_run = phase_pq(os.path.join(tmp, "pq"))
+        cflat_run = phase_cflat(os.path.join(tmp, "cflat"))
     except Exception:  # noqa: BLE001 — any failure fails the smoke
         traceback.print_exc()
         return 1
@@ -1209,7 +1473,8 @@ def main() -> int:
         "launches": index_run["launches"]["K1"],
         "launches_by_path": {"edge_server": run["launches"]["K1"],
                              "flat_index": index_run["launches"]["K1"],
-                             "edge_pq": pq_run["k1_launches"]},
+                             "edge_pq": pq_run["k1_launches"],
+                             "cflat": cflat_run["launches"]["K1"]},
         **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                "bound_ms", "bound_by", "share_of_bound")},
         "loops": k1_records,
@@ -1220,11 +1485,13 @@ def main() -> int:
         "replaces": "coltt_tpu/ops/scan_pallas.py:559",
         "launches": index_run["launches"]["K2"],
         "launches_by_path": {"edge_server": run["launches"]["K2"],
-                             "flat_index": index_run["launches"]["K2"]},
+                             "flat_index": index_run["launches"]["K2"],
+                             "cflat": cflat_run["launches"]["K2"]},
         **k2_record,
     }]
     log(json.dumps({"bq": bq_run, "pq": {k: v for k, v in pq_run.items()
-                                          if k != "k1_by_loop"}}, default=str))
+                                          if k != "k1_by_loop"},
+                    "cflat": cflat_run}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

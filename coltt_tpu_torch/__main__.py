@@ -1,7 +1,8 @@
 """Process entry: ``python -m coltt_tpu_torch --config coltt.toml``.
 
-Serves the edge mode (quantized FLAT collections behind gRPC) on the torch
-device named by ``[serving] device`` (default ``"cuda"``). Port of
+Serves the edge mode (quantized FLAT collections behind gRPC) or the
+experimental mode (CFLAT multi-vector collections) on the torch device
+named by ``[serving] device`` (default ``"cuda"``). Port of
 ``coltt_tpu/__main__.py`` (reference parity: ``cmd/root/main.go:38-90`` —
 parse the mode, create the data directory, start the profiling endpoint
 and the service layer, then block until SIGINT/SIGTERM and stop gracefully
@@ -58,7 +59,8 @@ def main() -> None:
     parser = argparse.ArgumentParser("coltt-tpu-torch")
     parser.add_argument(
         "-mode", "--mode", default=None,
-        help="edge (quantized FLAT); root and experimental are not ported yet",
+        help="edge (quantized FLAT) or experimental (CFLAT multi-vector); "
+             "root is not ported yet",
     )
     parser.add_argument("--config", default="coltt.toml")
     parser.add_argument("--bind", default=None, help="override bind address")
@@ -82,7 +84,8 @@ def main() -> None:
         log.info("device", extra={"kv": {
             "device": str(device), "name": torch.cuda.get_device_name(device)}})
     # the edge engine builds the CUDA kernels at construction, before the
-    # listener opens: a server that is ready when it says it is
+    # listener opens: a server that is ready when it says it is (the
+    # experimental engine has no kernel of its own)
     servicer = build_servicer(cfg.mode, cfg)
     server = create_server(servicer, cfg)
     # freeze the boot-time object graph out of the cyclic GC before the

@@ -1,11 +1,12 @@
-"""gRPC client for the edge service (port of ``coltt_tpu/api/client.py``,
-``EdgeClient``). Typed calls over the wire surface with Pythonic helpers;
-channel callables are hand-written over the generated message classes.
-The core and experimental clients are not ported yet."""
+"""gRPC clients for the edge and experimental services (port of
+``coltt_tpu/api/client.py``, ``EdgeClient`` and ``ExperimentalClient``).
+Typed calls over the wire surface with Pythonic helpers; channel callables
+are hand-written over the generated message classes. The core client is
+not ported yet."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import grpc
 import numpy as np
@@ -13,6 +14,7 @@ from google.protobuf import empty_pb2
 
 import coltt_tpu_torch.api  # noqa: F401  (gen/ on sys.path)
 import edge_pb2
+import experimental_pb2
 
 from coltt_tpu_torch.api.marshal import (
     dict_to_struct,
@@ -20,7 +22,7 @@ from coltt_tpu_torch.api.marshal import (
     schema_to_collection_msg,
     struct_to_dict,
 )
-from coltt_tpu_torch.api.server import EDGE_RPCS
+from coltt_tpu_torch.api.server import _EXP_RPCS, EDGE_RPCS
 from coltt_tpu_torch.index.filter import FilterExpression
 from coltt_tpu_torch.index.schema import CollectionSchema
 
@@ -162,4 +164,119 @@ class EdgeClient(_StubBase):
             [struct_to_dict(m) for m in resp.metadata]
             if include_metadata else None
         )
+        return list(resp.counts), list(resp.scores), list(resp.ids), mds
+
+
+class ExperimentalClient(_StubBase):
+    RPCS = _EXP_RPCS
+    SERVICE = "colttpu.experimental.v1.ExperimentalMultiVectorService"
+
+    def _name_call(self, rpc: str, name: str):
+        return _raise_on_error(
+            self.call(rpc, experimental_pb2.CollectionName(collection_name=name)))
+
+    def create_collection(self, schema: CollectionSchema):
+        msg = schema_to_collection_msg(
+            schema, experimental_pb2.Collection, experimental_pb2.IndexField)
+        return _raise_on_error(self.call("CreateCollection", msg))
+
+    def delete_collection(self, name: str):
+        return self._name_call("DeleteCollection", name)
+
+    def get_collection(self, name: str):
+        return self._name_call("GetCollection", name)
+
+    def load_collection(self, name: str):
+        return self._name_call("LoadCollection", name)
+
+    def release_collection(self, name: str):
+        return self._name_call("ReleaseCollection", name)
+
+    def flush(self, name: str):
+        return self._name_call("Flush", name)
+
+    def index(
+        self, name: str, record_id: str,
+        vectors: Optional[Dict[str, Sequence[float]]] = None,
+        metadata: Optional[Dict[str, Any]] = None, *, delete: bool = False,
+    ):
+        req = experimental_pb2.IndexChange(
+            id=record_id,
+            collection_name=name,
+            metadata=dict_to_struct(metadata or {}),
+            changed=experimental_pb2.DELETE if delete else experimental_pb2.CHANGED,
+        )
+        for fname, vec in (vectors or {}).items():
+            req.vectors.append(experimental_pb2.VectorIndex(
+                index_name=fname, vector=list(map(float, vec))))
+        return _raise_on_error(self.call("Index", req))
+
+    def vector_search(
+        self, name: str,
+        query_fields: Sequence[Tuple[str, Sequence[float], bool, float]],
+        top_k: int = 10, *, high_resource: bool = False,
+    ) -> List[dict]:
+        """CFLAT search of one query: each entry is (index_name, vector,
+        include_or_not, ratio%)."""
+        req = experimental_pb2.SearchMultiIndex(
+            collection_name=name, topK=top_k,
+            high_resource_avaliable=high_resource,
+        )
+        for fname, vec, include, ratio in query_fields:
+            req.vector.append(experimental_pb2.MultiVectorIndex(
+                index_name=fname, vector=list(map(float, vec)),
+                include_or_not=include, ratio=int(ratio)))
+        resp = _raise_on_error(self.call("VectorSearch", req))
+        return [
+            {"id": c.id, "score": c.score, "metadata": struct_to_dict(c.metadata)}
+            for c in resp.candidates
+        ]
+
+    def bulk_index(
+        self, name: str, record_ids: Sequence[str],
+        vectors_by_field: Dict[str, Any],  # field -> [N, dim_f]
+        metadatas: Optional[Sequence[Dict[str, Any]]] = None,
+    ):
+        """Bulk upsert: one RPC, a raw f32 block per vector field."""
+        req = experimental_pb2.BulkIndexChange(
+            collection_name=name, count=len(record_ids), ids=list(record_ids))
+        for fname, block in vectors_by_field.items():
+            b = np.ascontiguousarray(np.asarray(block, np.float32))
+            req.fields.append(experimental_pb2.VectorFieldBlock(
+                index_name=fname, vectors_f32=b.astype("<f4", copy=False).tobytes()))
+        if metadatas is not None:
+            req.metadata.extend(dict_to_struct(m) for m in metadatas)
+        return _raise_on_error(self.call("BulkIndex", req))
+
+    def vector_search_batch(
+        self, name: str,
+        query_fields: Sequence[Tuple[str, Any, bool, float]],
+        top_k: int = 10, *, high_resource: bool = False,
+        include_metadata: bool = False,
+    ):
+        """Batch-native CFLAT search: each entry is (index_name, [Q, D]
+        query block, include_or_not, ratio%). Returns ``(counts, scores,
+        ids, metadatas)`` columnar: query q owns rows [sum(counts[:q]),
+        sum(counts[:q+1])). Blocks ride as raw f32 bytes."""
+        req = experimental_pb2.SearchMultiIndexBatch(
+            collection_name=name, topK=top_k,
+            high_resource_avaliable=high_resource,
+            include_metadata=include_metadata,
+        )
+        count = None
+        for fname, block, include, ratio in query_fields:
+            q = np.ascontiguousarray(np.asarray(block, np.float32))
+            if q.ndim != 2:
+                raise ValueError(f"field {fname!r}: query block must be [Q, D]")
+            if count is None:
+                count = q.shape[0]
+            elif q.shape[0] != count:
+                raise ValueError("all query blocks must share the same Q")
+            req.vector.append(experimental_pb2.MultiVectorIndexBatch(
+                index_name=fname, vectors_f32=q.astype("<f4", copy=False).tobytes(),
+                include_or_not=include, ratio=int(ratio)))
+        req.count = count or 0
+        resp = _raise_on_error(self.call("VectorSearchBatch", req))
+        mds = ([struct_to_dict(m) for m in resp.metadata]
+               if include_metadata else None)
         return list(resp.counts), list(resp.scores), list(resp.ids), mds

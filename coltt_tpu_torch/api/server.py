@@ -1,16 +1,16 @@
-"""gRPC server for the edge engine mode.
+"""gRPC servers for the edge and experimental engine modes.
 
-Port of ``coltt_tpu/api/server.py``, edge mode. Reference parity:
-``root_layer/root/rpc.go:41-137`` (keepalive params, max message sizes,
-optional TLS, panic-recovery + request-logging, graceful stop) and the 1:1
-RPC->engine shims. Service handlers are registered via gRPC generic
-handlers over the generated message classes.
+Port of ``coltt_tpu/api/server.py``, edge and experimental modes.
+Reference parity: ``root_layer/root/rpc.go:41-137`` (keepalive params,
+max message sizes, optional TLS, panic-recovery + request-logging,
+graceful stop) and the 1:1 RPC->engine shims. Service handlers are
+registered via gRPC generic handlers over the generated message classes.
 
 Every RPC body is wrapped by ``_guarded`` — the recover() analogue: any
 exception becomes a status=false response with the proto Error, never a
 transport failure, and is logged with method + latency.
 
-The core (``root``) and ``experimental`` modes are not ported yet.
+The core (``root``) mode is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from google.protobuf import empty_pb2
 import coltt_tpu_torch.api  # noqa: F401  (puts gen/ on sys.path)
 import common_pb2
 import edge_pb2
+import experimental_pb2
 
 from coltt_tpu_torch.api.marshal import (
     dict_to_struct,
@@ -37,6 +38,7 @@ from coltt_tpu_torch.api.marshal import (
 )
 from coltt_tpu_torch.engine.edge import EdgeEngine
 from coltt_tpu_torch.engine.errors import EngineError
+from coltt_tpu_torch.engine.experimental import ExperimentalEngine
 from coltt_tpu_torch.utils.config import Config
 from coltt_tpu_torch.utils.logging import get_logger
 
@@ -205,6 +207,137 @@ class EdgeServicer:
         )
 
 
+class ExperimentalServicer:
+    SERVICE = "colttpu.experimental.v1.ExperimentalMultiVectorService"
+
+    def __init__(self, engine: ExperimentalEngine):
+        self.engine = engine
+
+    def Ping(self, request, context):
+        return empty_pb2.Empty()
+
+    def CreateCollection(self, request, context):
+        self.engine.create_collection(schema_from_collection_msg(request))
+        return experimental_pb2.CollectionResponse(collection=request, status=True)
+
+    def DeleteCollection(self, request, context):
+        self.engine.delete_collection(request.collection_name)
+        return common_pb2.Response(status=True)
+
+    def _detail(self, name: str) -> experimental_pb2.CollectionDetail:
+        info = self.engine.get_collection(name)
+        return experimental_pb2.CollectionDetail(
+            collection=schema_to_collection_msg(
+                info["schema"], experimental_pb2.Collection,
+                experimental_pb2.IndexField,
+            ),
+            collection_size=info["size"],
+            collection_memory=info["memory_bytes"],
+            load=info["loaded"],
+            status=True,
+        )
+
+    def GetCollection(self, request, context):
+        return self._detail(request.collection_name)
+
+    def LoadCollection(self, request, context):
+        self.engine.load_collection(request.collection_name)
+        return self._detail(request.collection_name)
+
+    def ReleaseCollection(self, request, context):
+        self.engine.release_collection(request.collection_name)
+        return common_pb2.Response(status=True)
+
+    def Flush(self, request, context):
+        self.engine.flush(request.collection_name)
+        return common_pb2.Response(status=True)
+
+    def Index(self, request, context):
+        if request.changed == experimental_pb2.DELETE:
+            self.engine.index(request.collection_name, request.id, delete=True)
+        else:
+            vectors = {v.index_name: _vec(v.vector) for v in request.vectors}
+            self.engine.index(
+                request.collection_name, request.id,
+                vectors=vectors, metadata=struct_to_dict(request.metadata),
+            )
+        return common_pb2.Response(status=True)
+
+    def VectorSearch(self, request, context):
+        hits = self.engine.vector_search(
+            request.collection_name,
+            [(q.index_name, _vec(q.vector), q.include_or_not, float(q.ratio))
+             for q in request.vector],
+            top_k=int(request.topK) or 10,
+            high_resource=request.high_resource_avaliable,
+        )
+        return experimental_pb2.SearchResponse(
+            status=True,
+            candidates=[
+                experimental_pb2.Candidate(
+                    id=h.id, metadata=dict_to_struct(h.metadata), score=h.score
+                )
+                for h in hits
+            ],
+        )
+
+    @staticmethod
+    def _blocks(n: int, dim: int, blocks):
+        """Each field block of a bulk request as ``(field, [n, dim] f32,
+        block)``; raw little-endian f32 bytes are the fast path. Checked
+        against the schema dim, not just divisibility: an empty payload
+        passes ``size % n == 0`` and wrong dims fail much later."""
+        if n <= 0:
+            raise EngineError("count must be positive")
+        out = []
+        for blk in blocks:
+            if blk.vectors_f32:
+                v = np.frombuffer(blk.vectors_f32, dtype="<f4")
+            else:
+                v = np.asarray(blk.vectors, np.float32)
+            if v.size != n * dim:
+                raise EngineError(
+                    f"field {blk.index_name!r}: vectors length {v.size} != "
+                    f"count {n} * dim {dim}"
+                )
+            out.append((blk.index_name, v.reshape(n, dim), blk))
+        return out
+
+    def BulkIndex(self, request, context):
+        name = request.collection_name
+        schema = self.engine.get_collection(name)["schema"]
+        n = int(request.count)
+        blocks = {f: v for f, v, _ in
+                  self._blocks(n, schema.dim, request.fields)}
+        if len(request.ids) != n:
+            raise EngineError("ids must parallel rows")
+        mds = [struct_to_dict(m) for m in request.metadata] or None
+        if mds is not None and len(mds) != n:
+            raise EngineError("metadata must parallel rows")
+        self.engine.index_many(name, list(request.ids), blocks, mds)
+        return common_pb2.Response(status=True)
+
+    def VectorSearchBatch(self, request, context):
+        name = request.collection_name
+        schema = self.engine.get_collection(name)["schema"]
+        query_fields = [
+            (f, q, blk.include_or_not, float(blk.ratio))
+            for f, q, blk in self._blocks(int(request.count), schema.dim,
+                                          request.vector)
+        ]
+        counts, scores, ids, mds = self.engine.vector_search_batch(
+            name, query_fields,
+            top_k=int(request.topK) or 10,
+            with_metadata=request.include_metadata,
+        )
+        resp = experimental_pb2.SearchBatchResponse(
+            status=True, counts=counts, scores=scores, ids=ids
+        )
+        if mds is not None:
+            resp.metadata.extend(dict_to_struct(m) for m in mds)
+        return resp
+
+
 EDGE_RPCS: Dict[str, Tuple[type, type]] = {
     "Ping": (empty_pb2.Empty, empty_pb2.Empty),
     "CreateCollection": (edge_pb2.Collection, edge_pb2.CollectionResponse),
@@ -217,6 +350,36 @@ EDGE_RPCS: Dict[str, Tuple[type, type]] = {
     "BulkIndex": (edge_pb2.BulkIndexChange, common_pb2.Response),
     "Search": (edge_pb2.SearchIndex, edge_pb2.SearchResponse),
     "SearchBatch": (edge_pb2.SearchBatchIndex, edge_pb2.SearchBatchResponse),
+}
+
+_EXP_RPCS: Dict[str, Tuple[type, type]] = {
+    "Ping": (empty_pb2.Empty, empty_pb2.Empty),
+    "CreateCollection": (
+        experimental_pb2.Collection, experimental_pb2.CollectionResponse,
+    ),
+    "DeleteCollection": (experimental_pb2.CollectionName, common_pb2.Response),
+    "GetCollection": (
+        experimental_pb2.CollectionName, experimental_pb2.CollectionDetail,
+    ),
+    "LoadCollection": (
+        experimental_pb2.CollectionName, experimental_pb2.CollectionDetail,
+    ),
+    "ReleaseCollection": (experimental_pb2.CollectionName, common_pb2.Response),
+    "Flush": (experimental_pb2.CollectionName, common_pb2.Response),
+    "Index": (experimental_pb2.IndexChange, common_pb2.Response),
+    "BulkIndex": (experimental_pb2.BulkIndexChange, common_pb2.Response),
+    "VectorSearch": (
+        experimental_pb2.SearchMultiIndex, experimental_pb2.SearchResponse,
+    ),
+    "VectorSearchBatch": (
+        experimental_pb2.SearchMultiIndexBatch,
+        experimental_pb2.SearchBatchResponse,
+    ),
+}
+
+RPC_TABLES = {
+    EdgeServicer.SERVICE: EDGE_RPCS,
+    ExperimentalServicer.SERVICE: _EXP_RPCS,
 }
 
 def _error_response_factory(resp_cls):
@@ -235,7 +398,7 @@ def _error_response_factory(resp_cls):
 
 def generic_handler(servicer) -> grpc.GenericRpcHandler:
     handlers = {}
-    for name, (req_cls, resp_cls) in EDGE_RPCS.items():
+    for name, (req_cls, resp_cls) in RPC_TABLES[servicer.SERVICE].items():
         fn = _guarded(getattr(servicer, name), _error_response_factory(resp_cls))
         handlers[name] = grpc.unary_unary_rpc_method_handler(
             fn,
@@ -256,13 +419,17 @@ def _object_store(cfg: Config):
     return LocalObjectStore(cfg.storage.object_store_root)
 
 
+def _one_shard(cfg: Config) -> None:
+    if int(cfg.serving.shards) != 1:
+        raise NotImplementedError(
+            "[serving].shards != 1 is not ported yet (ROADMAP Queue 1, "
+            "item 7, multi-device)")
+
+
 def build_servicer(mode: str, cfg: Config):
     """Mode dispatcher (NewRootLayer parity, root_layer/root_layer.go:30-37)."""
     if mode == "edge":
-        if int(cfg.serving.shards) != 1:
-            raise NotImplementedError(
-                "[serving].shards != 1 is not ported yet (ROADMAP Queue 1, "
-                "multi-device)")
+        _one_shard(cfg)
         return EdgeServicer(EdgeEngine(
             _object_store(cfg),
             device=cfg.serving.device,
@@ -274,10 +441,14 @@ def build_servicer(mode: str, cfg: Config):
                 if b.strip()
             ),
         ))
-    if mode in ("root", "core", "experimental"):
+    if mode == "experimental":
+        _one_shard(cfg)
+        return ExperimentalServicer(ExperimentalEngine(
+            _object_store(cfg), device=cfg.serving.device))
+    if mode in ("root", "core"):
         raise NotImplementedError(
-            f"mode {mode!r} is not yet ported (ROADMAP Queue 1: "
-            f"{'core/HNSW + WAL/KV' if mode != 'experimental' else 'CFLAT'})")
+            f"mode {mode!r} is not yet ported (ROADMAP Queue 1, items 3-5: "
+            f"core storage, HNSW and the core engine)")
     raise ValueError(f"unknown mode {mode!r} (want root|edge|experimental)")
 
 

@@ -189,11 +189,11 @@ def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
     }
 
 
-def profile_round(run) -> dict:
+def profile_round(run, top: int = 8) -> dict:
     """``run()`` once under ``torch.profiler``: wall ms (host clock),
     device-busy ms (the union of the kernels' and copies' device
-    intervals), idle share, and device ms of the costliest kernels by
-    name. Needs a CUDA device."""
+    intervals), idle share, and device ms of the ``top`` costliest
+    kernels by name. Needs a CUDA device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -210,13 +210,14 @@ def profile_round(run) -> dict:
     for start, stop, name in spans:
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
-        by_name[name] = by_name.get(name, 0.0) + (stop - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        # summed under the name's first 80 characters, the key printed
+        by_name[name[:80]] = by_name.get(name[:80], 0.0) + (stop - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {
         "wall_ms": round(wall_ms, 3),
         "device_busy_ms": round(busy_us / 1e3, 3),
         "device_idle_share": round(max(0.0, 1.0 - busy_us / 1e3 / wall_ms), 4),
-        "device_ms_by_kernel": {name[:80]: round(us / 1e3, 3) for name, us in top},
+        "device_ms_by_kernel": {name: round(us / 1e3, 3) for name, us in top},
     }
 
 

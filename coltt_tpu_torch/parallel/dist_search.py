@@ -14,12 +14,14 @@ never returned), and searched through
 - :func:`sharded_bq_topk`: the Hamming shortlist over packed sign words,
   then a rerank against the high-precision copy when there is one;
 - :func:`sharded_pq_topk`: the ADC scan over PQ codes
-  (:class:`DistributedPQIndex`).
+  (:class:`DistributedPQIndex`);
+- :func:`sharded_cflat_topk`: the CFLAT weighted multi-vector scan
+  (``store/multivec.py``), blocked over rows.
 
 The JAX ``mesh`` argument becomes a ``torch.device``. Only the
 single-device branches are ported: a sequence of several devices (the
-``shard_map`` branches and their ``_merge_partials``) raises, as does
-CFLAT search (ROADMAP Queue 1 items 10 and 12). The plain scan's
+``shard_map`` branches and their ``_merge_partials``) raises (ROADMAP
+Queue 1, item 7). The plain scan's
 selection is exact: the reference's ``approx_recall`` is
 ``lax.approx_max_k``, which is an exact top-k on the CPU where the
 reference is checked, so the port takes no such knob.
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from coltt_tpu_torch.ops.bq import bq_encode, bq_scan_neg_topk, hamming_to_neg_cos_dist
-from coltt_tpu_torch.ops.distance import Metric
+from coltt_tpu_torch.ops.distance import Metric, scan_distances
 from coltt_tpu_torch.ops.fused_scan import (
     _CHUNK,
     chunk_for,
@@ -51,11 +53,14 @@ from coltt_tpu_torch.ops.pq import (
     train_pq,
 )
 from coltt_tpu_torch.ops.quant import Quantization, dequantize, quantize
+from coltt_tpu_torch.ops.score import normalize_score
 from coltt_tpu_torch.ops.topk import (
     fetch_scores_ids,
+    fit_rows,
     rerank_neg_topk,
     scan_neg_topk,
     scores_from_negd,
+    stable_topk,
 )
 
 
@@ -68,7 +73,7 @@ def _one_device(device) -> torch.device:
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             _not_ported("search sharded over several devices",
-                        "item 12, multi-device")
+                        "item 7, multi-device")
         device = device[0]
     return torch.device(device)
 
@@ -240,9 +245,76 @@ def sharded_pq_topk(
     return scores_from_negd(negd, metric), ids
 
 
-def sharded_cflat_topk(*args, **kwargs):
-    """CFLAT weighted multi-vector search: not ported yet."""
-    _not_ported("sharded_cflat_topk", "item 10, CFLAT")
+def _cflat_scores(field_state, queries, ratios, valid, *, metric, compute_dtype):
+    """Batched CFLAT scoring: sum_f ratio_f * normalize(dist_f) -> [Q, N],
+    rows that are not valid at -inf. Fields are summed in their order, as
+    the reference does."""
+    total = None
+    for (codes, scale, sqnorm), q, r in zip(field_state, queries, ratios):
+        dist = scan_distances(q, codes, scale, sqnorm, None, metric=metric,
+                              compute_dtype=compute_dtype)
+        contrib = normalize_score(dist, metric) * r
+        total = contrib if total is None else total + contrib
+    return torch.where(valid.reshape(1, -1), total, -float("inf"))
+
+
+# f32 [Q, rows] tensors alive at once in a CFLAT block: the dots, the
+# epilogue's temporaries, the field's contribution and the running sum
+_CFLAT_LIVE = 6
+
+
+def sharded_cflat_topk(
+    device,
+    field_state,   # tuple of (codes [N, Df], scale [N, 1] | None, sqnorm [N])
+    valid,
+    queries,       # tuple of [Q, Df] f32, parallel to field_state
+    ratios,        # tuple of floats (already / 100)
+    *,
+    k: int,
+    metric: Metric = Metric.COSINE,
+    compute_dtype=torch.bfloat16,
+    block_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """CFLAT weighted multi-vector search on ``device``: ``(scores [Q, kk],
+    ids [Q, kk])``, kk = min(k, N), scores the 0-100 weighted sums.
+
+    The reference scores all N rows of every field into one [Q, N] matrix
+    and takes one ``lax.top_k``. Here the rows go in blocks sized from
+    the free device memory (``block_rows`` overrides): each block's
+    weighted sum over the fields keeps its exact top-k, and the blocks'
+    candidates, laid out in slot order, are merged by one more exact
+    selection. Every keep settles the tie group at its cut, so equal
+    scores come out lower slot first, as from ``lax.top_k`` (a euclidean
+    score clips at 0, and on most data every far row ties there). Rows
+    that are not valid score -inf."""
+    _one_device(device)
+    metric = Metric.parse(metric)
+    # each ratio rounded to f32 once, as the reference's jnp.float32
+    ratios = tuple(float(np.float32(r)) for r in ratios)
+    n = valid.shape[0]
+    kk = min(k, n)
+    q = queries[0].shape[0]
+    width = max(codes.shape[1] for codes, _, _ in field_state)
+    # plus each block row's bf16 and f32 copies of its widest code row
+    block = block_rows or fit_rows(n, q * 4 * _CFLAT_LIVE + width * 6, valid.device)
+    vals, ids = [], []
+    for start in range(0, n, block):
+        stop = min(n, start + block)
+        part = tuple(
+            (codes[start:stop], None if scale is None else scale[start:stop],
+             sqnorm[start:stop])
+            for codes, scale, sqnorm in field_state)
+        total = _cflat_scores(part, queries, ratios, valid[start:stop],
+                              metric=metric, compute_dtype=compute_dtype)
+        v, i = stable_topk(total, min(kk, stop - start))
+        vals.append(v)
+        ids.append(i + start)
+    if len(vals) == 1:
+        return vals[0], ids[0].to(torch.int32)
+    # block-major candidates, each block's in slot order among equal
+    # scores: the exact merge ranks equal scores lower slot first
+    scores, sel = stable_topk(torch.cat(vals, dim=1), kk)
+    return scores, torch.gather(torch.cat(ids, dim=1), 1, sel).to(torch.int32)
 
 
 class DistributedFlatIndex:

@@ -1,8 +1,10 @@
-"""Carry FlatStore state between the JAX package and this port as numpy.
+"""Carry store state between the JAX package and this port as numpy.
 
 ``flat_store_from_arrays`` builds a port :class:`FlatStore` from the
 arrays of a JAX ``coltt_tpu.store.flat.FlatStore`` (fetched to numpy) and
-its slot maps; :func:`flat_store_to_arrays` is its inverse. The tests use
+its slot maps; :func:`flat_store_to_arrays` is its inverse;
+``multivec_store_from_arrays`` / ``multivec_store_to_arrays`` do the same
+for a ``MultiVectorStore`` (one array of each kind per field). The tests use
 them so that both packages search the same state; the snapshot bytes
 (:meth:`FlatStore.save` / ``load``) are the on-disk route.
 
@@ -27,8 +29,10 @@ from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.pq import PQCodebook
 from coltt_tpu_torch.ops.quant import Quantization, storage_dtype
 from coltt_tpu_torch.store.flat import FlatStore, _INT_VIEW
+from coltt_tpu_torch.store.multivec import MultiVectorStore
 
 _NP_INT = {1: np.int8, 2: np.int16, 4: np.int32}
+_NP_OF = {torch.float32: np.float32, torch.bool: bool}
 
 
 def _from_bits(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -159,3 +163,68 @@ def flat_store_to_arrays(store: FlatStore) -> dict:
                 out["rr_codes"] = _to_bits(store.rr_codes)
                 out["rr_scale"] = store.rr_scale.cpu().numpy()
         return out
+
+
+def multivec_store_from_arrays(
+    *,
+    fields: Dict[str, int],
+    metric,
+    quantization,
+    codes: Dict[str, np.ndarray],
+    scale: Dict[str, np.ndarray],
+    sqnorm: Dict[str, np.ndarray],
+    valid: np.ndarray,
+    pk_to_slot: Dict[str, int],
+    free: Iterable[int] = (),
+    next_slot: Optional[int] = None,
+    device="cuda",
+) -> MultiVectorStore:
+    """A port MultiVectorStore holding exactly these per-field arrays
+    (``codes [cap, D_f]`` of the storage dtype or its bits, ``scale [cap,
+    1]``, ``sqnorm [cap]``), the shared ``valid [cap]`` and the slot maps.
+    ``next_slot`` defaults to one past the highest used slot. Each array
+    may also be a torch tensor (codes of the storage dtype), which is
+    moved to ``device`` without a host copy."""
+    cap = valid.shape[0]
+    store = MultiVectorStore(fields, metric=Metric.parse(metric),
+                             quantization=Quantization.parse(quantization),
+                             base_capacity=cap, device=device)
+    dev = store.device
+
+    def put(a, dtype, shape, *, bits=False):
+        if not isinstance(a, torch.Tensor):
+            a = (_from_bits(a, dtype) if bits
+                 else torch.from_numpy(np.array(a, _NP_OF[dtype])))
+        return a.to(dev, dtype).reshape(shape)
+
+    for name, dim in store.fields.items():
+        store.codes[name] = put(codes[name], store._qdtype, (cap, dim), bits=True)
+        store.scale[name] = put(scale[name], torch.float32, (cap, 1))
+        store.sqnorm[name] = put(sqnorm[name], torch.float32, (cap,))
+    store.valid = put(valid, torch.bool, (cap,))
+    store.capacity = cap
+    store.pk_to_slot = dict(pk_to_slot)
+    store.slot_to_pk = {slot: pk for pk, slot in store.pk_to_slot.items()}
+    store._free = list(free)
+    store._next_slot = (int(next_slot) if next_slot is not None
+                        else max(store.slot_to_pk, default=-1) + 1)
+    return store
+
+
+def multivec_store_to_arrays(store: MultiVectorStore) -> dict:
+    """The store's state as numpy (synced first): the keyword arguments of
+    :func:`multivec_store_from_arrays`."""
+    with store._mu:
+        store.sync()
+        return {
+            "fields": dict(store.fields),
+            "metric": int(store.metric),
+            "quantization": int(store.quantization),
+            "codes": {n: _to_bits(t) for n, t in store.codes.items()},
+            "scale": {n: t.cpu().numpy() for n, t in store.scale.items()},
+            "sqnorm": {n: t.cpu().numpy() for n, t in store.sqnorm.items()},
+            "valid": store.valid.cpu().numpy(),
+            "pk_to_slot": dict(store.pk_to_slot),
+            "free": list(store._free),
+            "next_slot": store._next_slot,
+        }

@@ -34,8 +34,9 @@ Modes:
   the cache.
 
 Filtered search gathers the candidate rows when there are few
-(``capacity // 6``, a crossover measured for the JAX package and kept as a
-tunable default) and masks a full scan otherwise.
+(``capacity // 6``) and scans them with the plain scan; otherwise it masks
+a full scan (through K1 under ``fused``). ``bench_filtered.py`` times the
+three regimes on the card.
 """
 
 from __future__ import annotations
@@ -81,8 +82,8 @@ from coltt_tpu_torch.ops.topk import (
 from coltt_tpu_torch.parallel.dist_search import sharded_scan_topk, shortlist_scan
 
 _CAPACITY_QUANTUM = 8192
-# candidate-count fraction below which the gather regime wins the masked
-# scan; measured for the JAX package, not yet on the card
+# filtered searches with fewer than capacity // _GATHER_FRACTION candidates
+# gather the rows, so a search copies at most a sixth of the store
 _GATHER_FRACTION = 6
 # a PQ-cache collection loads with its code table on the host when the
 # table passes this size (the reference's rule, set for a 16 GB chip;
@@ -119,6 +120,18 @@ def tensor_from_bytes(raw, dtype: torch.dtype, shape) -> torch.Tensor:
     return ints.view(dtype).reshape(shape)
 
 
+_SAVE_ROWS = 131_072  # rows fetched per device->host chunk on save
+
+
+def write_rows(f, t) -> None:
+    """Stream a tensor (or a host array) to ``f`` in row chunks, so the
+    host never holds more than one chunk of it."""
+    for i in range(0, t.shape[0], _SAVE_ROWS):
+        part = t[i:i + _SAVE_ROWS]
+        f.write(np.ascontiguousarray(part).tobytes() if isinstance(part, np.ndarray)
+                else tensor_to_bytes(part))
+
+
 def pq_cache_rows(pqcodes: torch.Tensor, codebook: PQCodebook):
     """The f8 scan cache of PQ code rows: each row reconstructed in f32
     (residual-aware), quantized to f8 with its per-row scale, and the
@@ -143,9 +156,9 @@ def pq_cache_rows(pqcodes: torch.Tensor, codebook: PQCodebook):
 
 
 def _locked(fn):
-    """Serialize a FlatStore method under the store lock (search releases
-    it for the scan itself; see :meth:`FlatStore.search`). RLock: search ->
-    sync re-enters."""
+    """Serialize a store method under the store's lock ``_mu`` (FlatStore
+    and MultiVectorStore; search releases it for the scan itself, see
+    :meth:`FlatStore.search`). RLock: search -> sync re-enters."""
     def wrapper(self, *a, **kw):
         with self._mu:
             return fn(self, *a, **kw)
@@ -425,8 +438,10 @@ class FlatStore:
 
         Writes in place when no search snapshot is live; while one is
         (``_readers > 0``), writes out of place so the snapshot's tensors
-        never change under its scan. A host-resident PQ code table is
-        written in place either way, as in the reference."""
+        never change under its scan. A host-resident PQ code table follows
+        the same rule: under a live snapshot the rows go into a copy of the
+        table, swapped in by assignment, so a search gathering its
+        shortlist's code rows never reads a half-written row."""
         if not self._pending:
             return
         items = sorted(self._pending.items())
@@ -457,7 +472,11 @@ class FlatStore:
                 else:
                     u_codes, u_scale, u_sqnorm = pq_cache_rows(u_pq, self.codebook)
                 if self.pq_host:
-                    self.pqcodes_host[slots_np] = u_pq.cpu().numpy()
+                    table = self.pqcodes_host
+                    if self._readers:
+                        table = table.copy()
+                    table[slots_np] = u_pq.cpu().numpy()
+                    self.pqcodes_host = table
                 else:
                     updates.append(("pqcodes", u_pq))
             else:
@@ -705,17 +724,6 @@ class FlatStore:
         return scores, slots
 
     # -- persistence -------------------------------------------------------
-    _SAVE_ROWS = 131_072  # rows fetched per device->host chunk on save
-
-    @classmethod
-    def _write_rows(cls, f, t) -> None:
-        """Stream a tensor (or a host array) to ``f`` in row chunks, so the
-        host never holds more than one chunk of it."""
-        for i in range(0, t.shape[0], cls._SAVE_ROWS):
-            part = t[i:i + cls._SAVE_ROWS]
-            f.write(np.ascontiguousarray(part).tobytes() if isinstance(part, np.ndarray)
-                    else tensor_to_bytes(part))
-
     @_locked
     def save(self, f: io.BufferedIOBase) -> None:
         """Binary snapshot, byte-compatible with the JAX package's:
@@ -758,11 +766,11 @@ class FlatStore:
         f.write(hb)
         codes = self._pq_code_array() if self.is_pq else self.codes
         for t in (codes, self.scale, self.sqnorm, self.valid):
-            self._write_rows(f, t)
+            write_rows(f, t)
         if self.bq_rerank:
             # the sign bits are lossy; the rerank copy is authoritative
-            self._write_rows(f, self.rr_codes)
-            self._write_rows(f, self.rr_scale)
+            write_rows(f, self.rr_codes)
+            write_rows(f, self.rr_scale)
 
     @classmethod
     def load(

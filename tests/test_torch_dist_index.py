@@ -258,12 +258,22 @@ def test_unit_i8_requires_cosine_and_rerank(rng):
 
 def test_unported_paths_name_the_roadmap(rng):
     vecs = rng.standard_normal((64, 128)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
         tds.DistributedFlatIndex(["cpu", "cpu"], vecs)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
         tds.DistributedPQIndex(["cpu", "cpu"], vecs)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 10"):
-        tds.sharded_cflat_topk()
+    # CFLAT on one device is ported (tests/test_torch_multivec.py)
+    codes = torch.from_numpy(vecs)
+    sqn = (codes * codes).sum(dim=1)
+    valid = torch.ones(64, dtype=torch.bool)
+    state = ((codes, None, sqn), (codes, None, sqn))
+    scores, ids = tds.sharded_cflat_topk("cpu", state, valid, (codes[:3], codes[:3]),
+                                         (0.5, 0.5), k=4, compute_dtype=torch.float32)
+    assert ids[:, 0].tolist() == [0, 1, 2]
+    np.testing.assert_allclose(scores[:, 0].numpy(), 100.0, rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
+        tds.sharded_cflat_topk(["cpu", "cpu"], state, valid, (codes, codes),
+                               (0.5, 0.5), k=4)
     with pytest.raises(ValueError, match="cosine-only"):
         tds.DistributedFlatIndex("cpu", vecs, metric=Metric.EUCLIDEAN,
                                  quantization=Quantization.BQ)

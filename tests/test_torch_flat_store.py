@@ -183,6 +183,29 @@ def test_sync_while_searching_keeps_the_snapshot():
     ts.sync()
     assert ts.codes is codes  # no reader: in place
 
+    # a host-resident PQ code table: the snapshot's numpy table never
+    # changes under its shortlist gather either
+    hs = FlatStore(D, quantization=Quantization.PQ, device="cpu",
+                   pq_host_codes=True, **_PQ_BASE)
+    _mutate(hs)
+    hs.sync()
+    snap_table = hs.pqcodes_host
+    before = snap_table.copy()
+    hs._readers += 1
+    try:
+        hs.upsert("p1", np.full(D, 3.0, np.float32))
+        hs.upsert("late", -np.ones(D, np.float32))
+        hs.sync()
+        assert hs.pqcodes_host is not snap_table
+        np.testing.assert_array_equal(snap_table, before)
+        assert not np.array_equal(hs.pqcodes_host, before)
+    finally:
+        hs._readers -= 1
+    hs.upsert("p3", np.ones(D, np.float32))
+    table = hs.pqcodes_host
+    hs.sync()
+    assert hs.pqcodes_host is table  # no reader: in place
+
 
 def test_growth_and_unported_modes():
     """Every mode grows past its first capacity, BQ and PQ included (both
