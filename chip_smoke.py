@@ -4,11 +4,11 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 Builds the port's CUDA kernels from ``coltt_tpu_torch/csrc``, checks each
-against its plain PyTorch version on the card, then drives two main
-paths on the same 1M x 768d rows: the edge server over gRPC (an int8
-cosine collection ingested through BulkIndex and searched through
-SearchBatch / Search, flushed, released and loaded again), and the
-flagship flat index of ``python -m coltt_tpu_torch.bench``.
+against its plain PyTorch version on the card, then drives every ported
+path: the edge server over gRPC and the flagship flat index of ``python
+-m coltt_tpu_torch.bench`` on the same 1M x 768d rows (phases 3-4), BQ
+and PQ (5-6), CFLAT, the experimental mode (7), and core mode, the HNSW
+store and the root server (8a, 8b).
 
 Phases (each exits non-zero on failure):
 
@@ -112,6 +112,30 @@ Phases (each exits non-zero on failure):
    K2 (its weighted sum needs every field's score of a row first); both
    counts must read 0 after the phase.
 
+8. core mode (no kernel of ours runs there: the HNSW search and builders
+   are torch ops). 8a, the store: ``bench_hnsw.py``'s recipe at
+   1,000,000 x 128 (16,384 centres, sigma 0.35, made on the card), cosine,
+   ``HnswConfig(m=16, ef_construction=100, ef=128, heuristic)``, bf16
+   device graph, built by ``bulk_build_auto`` (timed as rows/s); search
+   in batches of 512 at k=10: recall@10 >= 0.90 against the f32 scan
+   (TF32 off), finite ascending distances, a single search equal to its
+   batch row, queued QPS and p50, the loop forms (an exit check every
+   ``LOOP_CHECK_EVERY`` hops against the fixed hop count, in turns, ids
+   and distances equal), one round under ``torch.profiler`` (device busy
+   and idle share, device ms by part: products, gathers, selections,
+   elementwise, copies); removed slots never come back; searches with a
+   thread inserting and removing raise nothing and keep recall@10 >= 0.90
+   against the live rows. 8b, the server: ``--mode root`` in process,
+   f32 graph, 131,072 x 128 rows in one BulkInsert (rows/s), then
+   VectorSearchBatch Q=512 recall@10 >= 0.90; the server stops without a
+   snapshot (as a crash: no snapshot, no hint) and a new one rebuilds the
+   collection from the KV commit log, returning the same ids and scores;
+   VectorSearchBatch p50; 2,000 one-by-one Inserts (rows/s);
+   VectorSearch equal to its batch row; FilterSearch and HybridSearch on
+   a tag return only its rows; Update and Delete show in later results;
+   CompareDist of a vector with itself gives 100; Release + Load return
+   the same ids. K1's and K2's counts must read 0 after the phase.
+
 Each path's launch counts are set to 0 just before it is driven and
 read just after.
 Every number printed is this run's, on the card named in phase 0. The
@@ -153,6 +177,12 @@ CFLAT_N = 1 << 20  # phase 7's store: bench_cflat's 1,048,576 records
 CFLAT_Q = 512
 GRPC_CFLAT_N = 262_144  # phase 7's experimental collection, ingested over gRPC
 GRPC_CFLAT_CHUNK = 65_536
+CORE_N = 1_000_000  # phase 8a's HNSW store: bench_hnsw's size
+CORE_DIM = 128
+CORE_Q = 512
+CORE_DEPTH = 8
+CORE_GRPC_N = 131_072  # phase 8b's root-mode collection, through BulkInsert
+CORE_INSERTS = 2000
 K1_EDGE_DIMS = (128, 768, 2048, 3072, 6144)  # int8 codes: any D % 128 == 0
 K2_EDGE_DIMS = (128, 768, 2048)  # K2 stops at D=2048 (its packed key)
 K1_SOURCES = {"int8-wgmma": "coltt_tpu_torch/csrc/binmax_scan.cu",
@@ -888,11 +918,11 @@ def phase_flat_index(data, recall_server, device="cuda"):
 # -- phases 5 and 6 ------------------------------------------------------------
 
 def _grpc_server(tmp, device, mode="edge"):
-    """A started server of ``mode`` (edge or experimental), its servicer's
-    engine and a client on it. Messages up to 512 MB: a 65,536-row
-    BulkIndex of two 768d fields is 403 MB."""
+    """A started server of ``mode`` (edge, experimental or root), its
+    servicer's engine and a client on it. Messages up to 512 MB: a
+    65,536-row BulkIndex of two 768d fields is 403 MB."""
     import grpc
-    from coltt_tpu_torch.api.client import EdgeClient, ExperimentalClient
+    from coltt_tpu_torch.api.client import CoreClient, EdgeClient, ExperimentalClient
     from coltt_tpu_torch.api.server import build_servicer, create_server
     from coltt_tpu_torch.utils.config import Config
 
@@ -911,7 +941,7 @@ def _grpc_server(tmp, device, mode="edge"):
         f"127.0.0.1:{server.bound_port}",
         options=[("grpc.max_send_message_length", 512 << 20),
                  ("grpc.max_receive_message_length", 512 << 20)])
-    client = ExperimentalClient if mode == "experimental" else EdgeClient
+    client = {"experimental": ExperimentalClient, "root": CoreClient}.get(mode, EdgeClient)
     return server, channel, servicer.engine, client(channel)
 
 
@@ -1419,6 +1449,284 @@ def phase_cflat(tmp, device="cuda"):
             "launches": launches}
 
 
+# -- phase 8 -------------------------------------------------------------------
+
+def _core_part(name: str) -> str:
+    """A profiled kernel's part of an HNSW search: the batched products,
+    the row gathers (indexing), the selections (sorts, top-k, searchsorted)
+    or an elementwise pass (reductions included); copies apart."""
+    low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet", "bmm")):
+        return "products"
+    if any(s in low for s in ("sort", "topk", "radix", "searchsorted", "bitonic")):
+        return "selections"
+    if any(s in low for s in ("index", "gather", "scatter")):
+        return "gathers"
+    return "elementwise"
+
+
+def _search_truth(idx, queries, dev):
+    """Exact cosine top-k over the index's live rows (its host f32 rows,
+    tombstones masked), an f32 scan on the card with TF32 off."""
+    import torch
+    from coltt_tpu_torch.ops.distance import Metric
+    from coltt_tpu_torch.ops.topk import scan_neg_topk
+
+    n = idx._next
+    rows = torch.from_numpy(idx._vecs[:n]).to(dev)
+    _, ids = scan_neg_topk(torch.from_numpy(queries).to(dev), rows, None,
+                           (rows * rows).sum(dim=1), torch.from_numpy(idx._alive[:n]).to(dev),
+                           k=K, metric=Metric.COSINE, compute_dtype=torch.float32)
+    return ids.cpu().numpy()
+
+
+def _same_search(single, batch_row, what, tol=1e-5):
+    """A query searched alone equals its row of the batch: distances within
+    ``tol`` (the batched products may sum in another order), ids equal
+    except between two distances within ``tol`` of each other."""
+    (d1, i1), (db, ib) = single, batch_row
+    check(np.allclose(d1, db, rtol=0, atol=tol), f"{what}: distances {d1} != {db}")
+    for r in np.nonzero(np.asarray(i1) != np.asarray(ib))[0]:
+        near = [abs(db[r] - db[j]) <= tol for j in (r - 1, r + 1) if 0 <= j < len(db)]
+        check(any(near), f"{what}: id at rank {r} differs")
+
+
+def _core_store(dev):
+    """Phase 8a: the HNSW store at bench_hnsw's recipe, bf16 device graph."""
+    import torch
+    from coltt_tpu_torch import bench
+    from coltt_tpu_torch import bench_hnsw as bh
+    from coltt_tpu_torch.ops.topk import compute_recall
+    from coltt_tpu_torch.store.hnsw import HnswIndex
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows, centers = bh.make_corpus(CORE_N, CORE_DIM, gen)
+    vecs = rows.cpu().numpy()
+    eval_q = bh.make_queries(CORE_Q, centers, gen)
+    q_batches = [bh.make_queries(CORE_Q, centers, gen) for _ in range(CORE_DEPTH)]
+    extra = bh.make_queries(4096, centers, gen)
+    del rows
+    log(f"[core] {CORE_N} x {CORE_DIM} mixture rows ({bh.N_CENTERS} centres, sigma "
+        f"{bh.SIGMA}) made on the card: {time.perf_counter() - t0:.2f} s")
+
+    idx = HnswIndex(CORE_DIM, config=bh.CONFIG, device_dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    idx.bulk_build_auto(vecs)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"[core] bulk_build_auto ({bh.CONFIG}): {build_s:.2f} s = "
+        f"{CORE_N / build_s:.1f} rows/s")
+
+    truth = _search_truth(idx, eval_q, dev)
+    t0 = time.perf_counter()
+    d_b, i_b = idx.search(eval_q, K)
+    first_s = time.perf_counter() - t0
+    recall = float(compute_recall(i_b, truth))
+    check(np.isfinite(d_b).all() and ((i_b >= 0) & (i_b < CORE_N)).all(),
+          "core: a missing or out-of-range hit")
+    check((d_b[:, :-1] <= d_b[:, 1:]).all(), "core: distances not ascending")
+    log(f"[core] search Q={CORE_Q} k={K} ef={bh.CONFIG.ef} (first {first_s:.2f} s): "
+        f"recall@{K} {recall:.4f} vs the f32 scan")
+    check(recall >= 0.90, f"core: recall {recall} < 0.90")
+    for r in range(4):
+        d1, i1 = idx.search(eval_q[r], K)
+        _same_search((d1[0], i1[0]), (d_b[r], i_b[r]), f"core query {r}")
+    p50_ms, qps, rounds = bh.search_rounds(idx, q_batches, warm=1, rounds=3)
+    log(f"[core] {CORE_DEPTH} batches of {CORE_Q} a round: {qps:.1f} QPS (rounds "
+        f"{[round(x, 1) for x in rounds]}), p50 {p50_ms:.3f} ms")
+    forms = bh.loop_forms(idx, q_batches, eval_q)
+    log(f"[core] loop forms (exit check every {forms['check_every']} hops vs the "
+        f"fixed count, in turns): {json.dumps(forms)}")
+    check(forms["ids_equal"] and forms["dists_equal"],
+          "core: the fixed-count and early-exit loops disagree")
+    prof = None
+    if dev.type == "cuda":
+        prof = bench.profile_round(lambda: [idx.search(q, K) for q in q_batches], top=80)
+        parts = {}
+        for name, ms in prof["device_ms_by_kernel"].items():
+            parts[_core_part(name)] = round(parts.get(_core_part(name), 0.0) + ms, 3)
+        prof["device_ms_by_part"] = parts
+        log(f"[core] one round of {CORE_DEPTH} x {CORE_Q} queries under torch.profiler: "
+            f"{json.dumps(prof)}")
+
+    victims = [int(i_b[r, 0]) for r in range(4)]
+    for v in victims:
+        check(idx.remove(v), f"core: remove({v}) refused")
+    for _ in range(2):
+        _, ids = idx.search(eval_q, K)
+        check(not set(victims) & set(ids.ravel().tolist()), "core: a deleted slot came back")
+    # one round of 4 batches: a search racing the writer thread for the
+    # interpreter lock takes seconds (PERF.md section 5)
+    mutate = bh.mutate_qps(idx, q_batches[:4], extra, warm=0, rounds=1)
+    truth = _search_truth(idx, eval_q, dev)
+    recall_mut = float(compute_recall(idx.search(eval_q, K)[1], truth))
+    log(f"[core] deleted slots gone; interleaved mutate/search: {mutate['qps']:.1f} QPS, "
+        f"p50 {mutate['p50_ms']:.3f} ms, {mutate['inserts']} inserts; recall@{K} after "
+        f"{recall_mut:.4f} vs the f32 scan of the live rows")
+    check(recall_mut >= 0.90, f"core: recall {recall_mut} < 0.90 after mutation")
+    return {"rows": CORE_N, "build_s": build_s, "build_rows_per_s": CORE_N / build_s,
+            "recall": recall, "qps": qps, "p50_ms": p50_ms, "loop_forms": forms,
+            "profile": prof, "mutate": mutate, "recall_after_mutate": recall_mut}
+
+
+def _crash(engine):
+    """Stop a core engine as a crash would: the commit log stays as written,
+    no snapshot, no hint; the directory lock is released."""
+    import fcntl
+
+    kv = engine.kv
+    kv._stop.set()
+    kv._wal.sync()
+    fcntl.flock(kv._lock_f, fcntl.LOCK_UN)
+    kv._lock_f.close()
+
+
+def _core_server(tmp, dev):
+    """Phase 8b: --mode root in process, f32 graph, over gRPC."""
+    import torch
+    from coltt_tpu_torch import bench_hnsw as bh
+    from coltt_tpu_torch.ops.topk import compute_recall
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    rows, centers = bh.make_corpus(CORE_GRPC_N, CORE_DIM, gen)
+    x = rows.cpu().numpy()
+    queries = bh.make_queries(CORE_Q, centers, gen)
+    fresh = bh.make_queries(CORE_INSERTS, centers, gen)
+    truth = bh.ground_truth(queries, rows)
+    del rows
+    name = "core"
+    ids = [f"{i:07d}" for i in range(CORE_GRPC_N)]  # key order = row order
+
+    def batch(c, q=queries):
+        counts, scores, got, _, _ = c.vector_search_batch(name, q, top_k=K)
+        check(counts == [K] * len(q), f"core: VectorSearchBatch counts {set(counts)}")
+        s = np.asarray(scores).reshape(len(q), K)
+        check(np.isfinite(s).all() and (s[:, :-1] >= s[:, 1:]).all(),
+              "core: VectorSearchBatch scores not finite and descending")
+        return s, np.asarray(got).reshape(len(q), K)
+
+    server, channel, engine, c = _grpc_server(tmp, dev.type, mode="root")
+    try:
+        c.create_collection(name, CORE_DIM, config=bh.CONFIG)
+        t0 = time.perf_counter()
+        c.bulk_insert(name, x, [{"tag": f"t{i % TAGS}"} for i in range(CORE_GRPC_N)],
+                      ext_ids=ids)
+        bulk_s = time.perf_counter() - t0
+        check(c.collection_info(name).info.collection_length == CORE_GRPC_N,
+              "core: size after BulkInsert")
+        log(f"[core-grpc] BulkInsert {CORE_GRPC_N} x {CORE_DIM} in one RPC "
+            f"(bulk_build_auto, f32 device graph): {bulk_s:.2f} s = "
+            f"{CORE_GRPC_N / bulk_s:.1f} rows/s")
+        s_before, ids_before = batch(c)
+        recall = float(compute_recall(np.vectorize(int)(ids_before), truth))
+        log(f"[core-grpc] VectorSearchBatch Q={CORE_Q}: recall@{K} {recall:.4f} vs "
+            f"the f32 scan")
+        check(recall >= 0.90, f"core: VectorSearchBatch recall {recall} < 0.90")
+    finally:
+        channel.close()
+        server.stop(None)
+    _crash(engine)
+    del engine
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    server, channel, engine, c = _grpc_server(tmp, dev.type, mode="root")
+    try:
+        t0 = time.perf_counter()
+        c.load_collection(name)
+        replay_s = time.perf_counter() - t0
+        check(c.collection_info(name).info.collection_length == CORE_GRPC_N,
+              "core: size after the restart")
+        s_after, ids_after = batch(c)
+        check((ids_after == ids_before).all(), "core: the restart returned other ids")
+        check(np.allclose(s_after, s_before, rtol=0, atol=1e-4),
+              "core: the restart returned other scores")
+        log(f"[core-grpc] stopped without a snapshot; a new server rebuilt the "
+            f"collection from the KV commit log in {replay_s:.2f} s: same ids")
+        ts = []
+        for _ in range(REPS):
+            t0 = time.perf_counter()
+            batch(c)
+            ts.append(time.perf_counter() - t0)
+        p50 = statistics.median(ts) * 1e3
+
+        t0 = time.perf_counter()
+        for i in range(CORE_INSERTS):
+            c.insert(name, fresh[i], {"tag": "new"}, ext_id=f"n{i:05d}")
+        insert_s = time.perf_counter() - t0
+        check(c.collection_info(name).info.collection_length == CORE_GRPC_N + CORE_INSERTS,
+              "core: size after the Inserts")
+        log(f"[core-grpc] {CORE_INSERTS} one-by-one Inserts: {insert_s:.2f} s = "
+            f"{CORE_INSERTS / insert_s:.1f} rows/s; VectorSearchBatch p50 {p50:.1f} ms")
+
+        s_b, ids_b = batch(c)
+        for r in range(3):
+            hits, _ = c.vector_search(name, queries[r], top_k=K)
+            check([h["id"] for h in hits] == ids_b[r].tolist(),
+                  f"core: VectorSearch {r} != its batch row")
+            check(np.allclose([h["score"] for h in hits], s_b[r], rtol=0, atol=1e-4),
+                  f"core: VectorSearch {r} scores != its batch row")
+        hits, _ = c.vector_search(name, fresh[7], top_k=1)
+        check(hits[0]["id"] == "n00007", "core: an Insert is not found by its vector")
+        hits, _ = c.filter_search(name, {"tag": "t3"}, top_k=K, vector=queries[0])
+        check(len(hits) == K and all(h["metadata"]["tag"] == "t3"
+                                     and int(h["id"]) % TAGS == 3 for h in hits),
+              "core: FilterSearch returned rows outside the tag")
+        hits, _ = c.hybrid_search(name, queries[1], {"tag": "t5"}, top_k=K)
+        check(hits and all(h["metadata"]["tag"] == "t5" and int(h["id"]) % TAGS == 5
+                           for h in hits), "core: HybridSearch returned rows outside the tag")
+        moved = ids_b[2, 0]
+        c.update(name, moved, fresh[0] * 3.0, {"tag": "moved"})
+        hits, _ = c.vector_search(name, fresh[0] * 3.0, top_k=2)
+        check({h["id"] for h in hits} == {moved, "n00000"},
+              "core: an Update did not show in later results")
+        victim = ids_b[0, 0]
+        c.delete(name, victim)
+        s_d, ids_d = batch(c)
+        check(victim not in ids_d and moved not in ids_d[2],
+              "core: a deleted or moved id came back")
+        same = c.compare_dist(queries[0], queries[0])
+        check(abs(same - 100.0) <= 1e-3, f"core: CompareDist(x, x) = {same}, not 100")
+        t0 = time.perf_counter()
+        c.release_collection(name)
+        check(not engine.state.loaded(name), "core: still loaded after Release")
+        c.load_collection(name)
+        reload_s = time.perf_counter() - t0
+        check((batch(c)[1] == ids_d).all(), "core: Release + Load returned other ids")
+        log(f"[core-grpc] VectorSearch == its batch row (3 queries); FilterSearch and "
+            f"HybridSearch on a tag; Update and Delete show; CompareDist(x, x) = 100; "
+            f"Release (snapshot) + Load {reload_s:.2f} s: same ids")
+    finally:
+        channel.close()
+        server.stop(None)
+        engine.close()
+    return {"rows": CORE_GRPC_N, "bulk_rows_per_s": CORE_GRPC_N / bulk_s,
+            "recall": recall, "p50_ms": p50, "replay_s": replay_s,
+            "insert_rows_per_s": CORE_INSERTS / insert_s, "reload_s": reload_s}
+
+
+def phase_core(tmp, device="cuda"):
+    """Phase 8: core mode, the HNSW store (8a) and the root server (8b)."""
+    import torch
+    from coltt_tpu_torch import native
+    from coltt_tpu_torch.ops import fused_scan as fs
+
+    dev = torch.device(device)
+    log(f"[core] commit log framing / replay: {native.describe()}")
+    fs.reset_launch_counts()  # this path's counts: core mode runs neither kernel
+    store = _core_store(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    grpc_run = _core_server(tmp, dev)
+    launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
+    check(launches == {"K1": 0, "K2": 0}, f"core: launched {launches}")
+    return {"store": store, "grpc": grpc_run, "launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1451,6 +1759,7 @@ def main() -> int:
         bq_run = phase_bq(os.path.join(tmp, "bq"))
         pq_run = phase_pq(os.path.join(tmp, "pq"))
         cflat_run = phase_cflat(os.path.join(tmp, "cflat"))
+        core_run = phase_core(os.path.join(tmp, "core"))
     except Exception:  # noqa: BLE001 — any failure fails the smoke
         traceback.print_exc()
         return 1
@@ -1474,7 +1783,8 @@ def main() -> int:
         "launches_by_path": {"edge_server": run["launches"]["K1"],
                              "flat_index": index_run["launches"]["K1"],
                              "edge_pq": pq_run["k1_launches"],
-                             "cflat": cflat_run["launches"]["K1"]},
+                             "cflat": cflat_run["launches"]["K1"],
+                             "core": core_run["launches"]["K1"]},
         **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
                                "bound_ms", "bound_by", "share_of_bound")},
         "loops": k1_records,
@@ -1486,12 +1796,13 @@ def main() -> int:
         "launches": index_run["launches"]["K2"],
         "launches_by_path": {"edge_server": run["launches"]["K2"],
                              "flat_index": index_run["launches"]["K2"],
-                             "cflat": cflat_run["launches"]["K2"]},
+                             "cflat": cflat_run["launches"]["K2"],
+                             "core": core_run["launches"]["K2"]},
         **k2_record,
     }]
     log(json.dumps({"bq": bq_run, "pq": {k: v for k, v in pq_run.items()
                                           if k != "k1_by_loop"},
-                    "cflat": cflat_run}, default=str))
+                    "cflat": cflat_run, "core": core_run}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """Process entry: ``python -m coltt_tpu_torch --config coltt.toml``.
 
-Serves the edge mode (quantized FLAT collections behind gRPC) or the
-experimental mode (CFLAT multi-vector collections) on the torch device
-named by ``[serving] device`` (default ``"cuda"``). Port of
+Serves the edge mode (quantized FLAT collections behind gRPC), the core
+mode (``root``: HNSW collections with a WAL-backed KV commit log under
+``[storage] data_dir``) or the experimental mode (CFLAT multi-vector
+collections) on the torch device named by ``[serving] device`` (default
+``"cuda"``; the engines raise if CUDA is asked for and absent). Port of
 ``coltt_tpu/__main__.py`` (reference parity: ``cmd/root/main.go:38-90`` —
 parse the mode, create the data directory, start the profiling endpoint
 and the service layer, then block until SIGINT/SIGTERM and stop gracefully
@@ -59,8 +61,8 @@ def main() -> None:
     parser = argparse.ArgumentParser("coltt-tpu-torch")
     parser.add_argument(
         "-mode", "--mode", default=None,
-        help="edge (quantized FLAT) or experimental (CFLAT multi-vector); "
-             "root is not ported yet",
+        help="root (HNSW + commit log), edge (quantized FLAT) or "
+             "experimental (CFLAT multi-vector)",
     )
     parser.add_argument("--config", default="coltt.toml")
     parser.add_argument("--bind", default=None, help="override bind address")

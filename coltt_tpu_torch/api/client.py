@@ -1,8 +1,7 @@
-"""gRPC clients for the edge and experimental services (port of
-``coltt_tpu/api/client.py``, ``EdgeClient`` and ``ExperimentalClient``).
-Typed calls over the wire surface with Pythonic helpers; channel callables
-are hand-written over the generated message classes. The core client is
-not ported yet."""
+"""gRPC clients for the three services (port of ``coltt_tpu/api/client.py``:
+``EdgeClient``, ``CoreClient`` and ``ExperimentalClient``). Typed calls
+over the wire surface with Pythonic helpers; channel callables are
+hand-written over the generated message classes."""
 
 from __future__ import annotations
 
@@ -13,6 +12,7 @@ import numpy as np
 from google.protobuf import empty_pb2
 
 import coltt_tpu_torch.api  # noqa: F401  (gen/ on sys.path)
+import core_pb2
 import edge_pb2
 import experimental_pb2
 
@@ -22,9 +22,15 @@ from coltt_tpu_torch.api.marshal import (
     schema_to_collection_msg,
     struct_to_dict,
 )
-from coltt_tpu_torch.api.server import _EXP_RPCS, EDGE_RPCS
+from coltt_tpu_torch.api.server import (
+    _CORE_RPCS,
+    _EXP_RPCS,
+    EDGE_RPCS,
+    _hnsw_config_to_proto,
+)
 from coltt_tpu_torch.index.filter import FilterExpression
 from coltt_tpu_torch.index.schema import CollectionSchema
+from coltt_tpu_torch.store.hnsw import HnswConfig
 
 
 class _StubBase:
@@ -165,6 +171,142 @@ class EdgeClient(_StubBase):
             if include_metadata else None
         )
         return list(resp.counts), list(resp.scores), list(resp.ids), mds
+
+
+class CoreClient(_StubBase):
+    RPCS = _CORE_RPCS
+    SERVICE = "colttpu.core.v1.CoreService"
+
+    def create_collection(
+        self, name: str, dim: int, *, metric: int = 0, quantization: int = 0,
+        config: Optional[HnswConfig] = None,
+    ):
+        req = core_pb2.CollectionSpec(
+            collection_name=name,
+            vector_dimension=dim,
+            distance=metric,
+            compression_helper=quantization,
+            collection_config=_hnsw_config_to_proto(config or HnswConfig()),
+        )
+        return _raise_on_error(self.call("CreateCollection", req))
+
+    def drop_collection(self, name: str):
+        return _raise_on_error(
+            self.call("DropCollection", core_pb2.CollectionName(collection_name=name))
+        )
+
+    def collection_info(self, name: str):
+        return _raise_on_error(
+            self.call("CollectionInfof", core_pb2.CollectionName(collection_name=name))
+        )
+
+    def load_collection(self, name: str):
+        return _raise_on_error(
+            self.call("LoadCollection", core_pb2.CollectionName(collection_name=name))
+        )
+
+    def release_collection(self, name: str):
+        return _raise_on_error(
+            self.call("ReleaseCollection", core_pb2.CollectionName(collection_name=name))
+        )
+
+    def _change(self, name, ext_id, vector, metadata, ctype):
+        return core_pb2.DatasetChange(
+            id=ext_id or "",
+            collection_name=name,
+            vector=list(map(float, vector)) if vector is not None else [],
+            metadata=dict_to_struct(metadata or {}),
+            index_change_types=ctype,
+        )
+
+    def insert(self, name: str, vector, metadata=None, *, ext_id: str = ""):
+        return _raise_on_error(
+            self.call("Insert", self._change(name, ext_id, vector, metadata, core_pb2.INSERT))
+        )
+
+    def bulk_insert(self, name: str, vectors, metadatas=None, *, ext_ids=None):
+        """Bulk ingest: one RPC carrying a packed [N, D] float block."""
+        vecs = np.ascontiguousarray(np.asarray(vectors, np.float32))
+        req = core_pb2.BulkDataset(
+            collection_name=name,
+            vectors_f32=vecs.astype("<f4", copy=False).tobytes(),
+            count=vecs.shape[0],
+            ids=list(ext_ids or []),
+            metadata=[dict_to_struct(m) for m in (metadatas or [])],
+        )
+        resp = _raise_on_error(self.call("BulkInsert", req))
+        return list(resp.ids)
+
+    def update(self, name: str, ext_id: str, vector, metadata=None):
+        return _raise_on_error(
+            self.call("Update", self._change(name, ext_id, vector, metadata, core_pb2.UPDATE))
+        )
+
+    def delete(self, name: str, ext_id: str):
+        return _raise_on_error(
+            self.call("Delete", self._change(name, ext_id, None, None, core_pb2.DELETE))
+        )
+
+    def _search(self, rpc, name, vector, top_k, filters, min_score, with_latency):
+        req = core_pb2.SearchRequest(
+            collection_name=name,
+            vector=list(map(float, vector)) if vector is not None else [],
+            topK=top_k,
+            min_score_threshold=min_score,
+            with_latency=with_latency,
+        )
+        for k, v in (filters or {}).items():
+            req.filter[k] = str(v)
+        resp = _raise_on_error(self.call(rpc, req))
+        hits = [
+            {"id": c.id, "score": c.score, "metadata": struct_to_dict(c.metadata)}
+            for c in resp.candidates
+        ]
+        return (hits, resp.latency) if with_latency else (hits, "")
+
+    def vector_search(self, name, vector, top_k=10, *, min_score=0.0, with_latency=False):
+        return self._search("VectorSearch", name, vector, top_k, None, min_score, with_latency)
+
+    def filter_search(self, name, filters, top_k=10, *, vector=None, min_score=0.0,
+                      with_latency=False):
+        return self._search("FilterSearch", name, vector, top_k, filters, min_score, with_latency)
+
+    def hybrid_search(self, name, vector, filters, top_k=10, *, min_score=0.0,
+                      with_latency=False):
+        return self._search("HybridSearch", name, vector, top_k, filters, min_score, with_latency)
+
+    def vector_search_batch(
+        self, name: str, vectors, top_k: int = 10, *, min_score: float = 0.0,
+        include_metadata: bool = False, with_latency: bool = False,
+    ):
+        """Batch-native HNSW search: columnar ``(counts, scores, ids,
+        metadatas, latency)`` for a [Q, D] query block in one RPC."""
+        q = np.ascontiguousarray(np.asarray(vectors, np.float32))
+        req = core_pb2.SearchBatchRequest(
+            collection_name=name,
+            vectors_f32=q.astype("<f4", copy=False).tobytes(),
+            count=q.shape[0],
+            topK=top_k,
+            min_score_threshold=min_score,
+            include_metadata=include_metadata,
+            with_latency=with_latency,
+        )
+        resp = _raise_on_error(self.call("VectorSearchBatch", req))
+        mds = (
+            [struct_to_dict(m) for m in resp.metadata]
+            if include_metadata else None
+        )
+        return (list(resp.counts), list(resp.scores), list(resp.ids), mds,
+                resp.latency)
+
+    def compare_dist(self, x, y, metric: int = 0) -> float:
+        resp = self.call(
+            "CompareDist",
+            core_pb2.CompXyDist(
+                vector_x=list(map(float, x)), vector_y=list(map(float, y)), dist=metric
+            ),
+        )
+        return resp.score
 
 
 class ExperimentalClient(_StubBase):

@@ -1,6 +1,7 @@
-"""gRPC servers for the edge and experimental engine modes.
+"""gRPC servers for the three engine modes.
 
-Port of ``coltt_tpu/api/server.py``, edge and experimental modes.
+Port of ``coltt_tpu/api/server.py``: edge, core (``root``) and
+experimental modes.
 Reference parity: ``root_layer/root/rpc.go:41-137`` (keepalive params,
 max message sizes, optional TLS, panic-recovery + request-logging,
 graceful stop) and the 1:1 RPC->engine shims. Service handlers are
@@ -9,8 +10,6 @@ registered via gRPC generic handlers over the generated message classes.
 Every RPC body is wrapped by ``_guarded`` — the recover() analogue: any
 exception becomes a status=false response with the proto Error, never a
 transport failure, and is logged with method + latency.
-
-The core (``root``) mode is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +24,7 @@ from google.protobuf import empty_pb2
 
 import coltt_tpu_torch.api  # noqa: F401  (puts gen/ on sys.path)
 import common_pb2
+import core_pb2
 import edge_pb2
 import experimental_pb2
 
@@ -36,9 +36,13 @@ from coltt_tpu_torch.api.marshal import (
     schema_to_collection_msg,
     struct_to_dict,
 )
+from coltt_tpu_torch.engine.core import CollectionSpec, CoreEngine
 from coltt_tpu_torch.engine.edge import EdgeEngine
 from coltt_tpu_torch.engine.errors import EngineError
 from coltt_tpu_torch.engine.experimental import ExperimentalEngine
+from coltt_tpu_torch.ops.distance import Metric
+from coltt_tpu_torch.ops.quant import Quantization
+from coltt_tpu_torch.store.hnsw import HEURISTIC, SIMPLE, HnswConfig
 from coltt_tpu_torch.utils.config import Config
 from coltt_tpu_torch.utils.logging import get_logger
 
@@ -207,6 +211,212 @@ class EdgeServicer:
         )
 
 
+# ---------------------------------------------------------------------------
+# Core
+# ---------------------------------------------------------------------------
+
+def _hnsw_config_from_proto(c: core_pb2.HnswConfig) -> HnswConfig:
+    return HnswConfig(
+        m=c.m or 16,
+        m_max=c.m_max or None,
+        m_max0=c.m_max0 or None,
+        ef=c.ef or 20,
+        ef_construction=c.ef_construction or 200,
+        level_multiplier=c.level_multiplier or None,
+        algorithm=HEURISTIC if c.search_algorithm == core_pb2.HEURISTIC else SIMPLE,
+        heuristic_extend_candidates=c.heuristic_extend_candidates,
+        heuristic_keep_pruned=c.heuristic_keep_pruned,
+    )
+
+
+def _hnsw_config_to_proto(c: HnswConfig) -> core_pb2.HnswConfig:
+    c = c.resolved()
+    return core_pb2.HnswConfig(
+        search_algorithm=(
+            core_pb2.HEURISTIC if c.algorithm == HEURISTIC else core_pb2.SIMPLE
+        ),
+        level_multiplier=c.level_multiplier,
+        ef=c.ef,
+        ef_construction=c.ef_construction,
+        m=c.m,
+        m_max=c.m_max,
+        m_max0=c.m_max0,
+        heuristic_extend_candidates=c.heuristic_extend_candidates,
+        heuristic_keep_pruned=c.heuristic_keep_pruned,
+    )
+
+
+class CoreServicer:
+    SERVICE = "colttpu.core.v1.CoreService"
+
+    def __init__(self, engine: CoreEngine):
+        self.engine = engine
+
+    def Ping(self, request, context):
+        return empty_pb2.Empty()
+
+    def CreateCollection(self, request, context):
+        spec = CollectionSpec(
+            name=request.collection_name,
+            dim=int(request.vector_dimension),
+            metric=Metric(int(request.distance)),
+            quantization=Quantization(int(request.compression_helper)),
+            config=_hnsw_config_from_proto(request.collection_config),
+        )
+        self.engine.create_collection(spec)
+        return core_pb2.CollectionResponse(status=True, spec=request)
+
+    def DropCollection(self, request, context):
+        self.engine.drop_collection(request.collection_name)
+        return common_pb2.Response(status=True)
+
+    def _msg(self, name: str) -> core_pb2.CollectionMsg:
+        info = self.engine.collection_info(name)
+        spec = info["spec"]
+        return core_pb2.CollectionMsg(
+            status=True,
+            info=core_pb2.CollectionInfo(
+                collection_name=spec.name,
+                collection_config=_hnsw_config_to_proto(spec.config),
+                vector_dimension=spec.dim,
+                distance=int(spec.metric),
+                compression_helper=int(spec.quantization),
+                collection_size=f"{info['size']} vectors",
+                collection_length=info["size"],
+            ),
+        )
+
+    def CollectionInfof(self, request, context):
+        return self._msg(request.collection_name)
+
+    def LoadCollection(self, request, context):
+        self.engine.load_collection(request.collection_name)
+        return self._msg(request.collection_name)
+
+    def ReleaseCollection(self, request, context):
+        msg = self.engine.release_collection(request.collection_name)
+        return core_pb2.ResponseWithMessage(status=True, message=msg)
+
+    def Insert(self, request, context):
+        self.engine.insert(
+            request.collection_name,
+            _vec(request.vector),
+            struct_to_dict(request.metadata),
+            ext_id=request.id or None,
+        )
+        return common_pb2.Response(status=True)
+
+    def BulkInsert(self, request, context):
+        count = int(request.count)
+        dim = self.engine.collection_info(request.collection_name)["spec"].dim
+        if request.vectors_f32:
+            vecs = np.frombuffer(request.vectors_f32, dtype="<f4")
+        else:
+            vecs = np.asarray(request.vectors, np.float32)
+        if count <= 0 or vecs.size != count * dim:
+            raise ValueError(
+                f"vectors length {vecs.size} != count {count} * dim {dim}"
+            )
+        vecs = vecs.reshape(count, dim)
+        ids = self.engine.bulk_insert(
+            request.collection_name,
+            vecs,
+            [struct_to_dict(m) for m in request.metadata] or None,
+            ext_ids=list(request.ids) or None,
+        )
+        return core_pb2.BulkResponse(status=True, ids=ids)
+
+    def Update(self, request, context):
+        self.engine.update(
+            request.collection_name,
+            request.id,
+            _vec(request.vector),
+            struct_to_dict(request.metadata),
+        )
+        return common_pb2.Response(status=True)
+
+    def Delete(self, request, context):
+        self.engine.delete(request.collection_name, request.id)
+        return common_pb2.Response(status=True)
+
+    def _respond(self, hits, t0, with_latency: bool) -> core_pb2.SearchResponse:
+        resp = core_pb2.SearchResponse(
+            status=True,
+            candidates=[
+                core_pb2.Candidate(
+                    id=h.id, metadata=dict_to_struct(h.metadata), score=h.score
+                )
+                for h in hits
+            ],
+        )
+        if with_latency:
+            # the reference declares with_latency but never populates it
+            # (SURVEY.md §5); here it works
+            resp.latency = f"{(time.perf_counter() - t0) * 1e3:.3f}ms"
+        return resp
+
+    def VectorSearch(self, request, context):
+        t0 = time.perf_counter()
+        hits = self.engine.vector_search(
+            request.collection_name, _vec(request.vector),
+            top_k=int(request.topK) or 10,
+            min_score=request.min_score_threshold,
+        )
+        return self._respond(hits, t0, request.with_latency)
+
+    def FilterSearch(self, request, context):
+        t0 = time.perf_counter()
+        hits = self.engine.filter_search(
+            request.collection_name, dict(request.filter),
+            top_k=int(request.topK) or 10,
+            vector=_vec(request.vector) if request.vector else None,
+            min_score=request.min_score_threshold,
+        )
+        return self._respond(hits, t0, request.with_latency)
+
+    def HybridSearch(self, request, context):
+        t0 = time.perf_counter()
+        hits = self.engine.hybrid_search(
+            request.collection_name, _vec(request.vector), dict(request.filter),
+            top_k=int(request.topK) or 10,
+            min_score=request.min_score_threshold,
+        )
+        return self._respond(hits, t0, request.with_latency)
+
+    def VectorSearchBatch(self, request, context):
+        t0 = time.perf_counter()
+        name = request.collection_name
+        dim = self.engine.collection_info(name)["spec"].dim
+        if request.vectors_f32:
+            q = np.frombuffer(request.vectors_f32, dtype="<f4")
+        else:
+            q = np.asarray(request.vectors, np.float32)
+        n = int(request.count)
+        if n <= 0 or q.size != n * dim:
+            raise ValueError(
+                f"vectors length {q.size} != count {n} * dim {dim}"
+            )
+        counts, scores, ids, mds = self.engine.vector_search_batch(
+            name, q.reshape(n, dim), top_k=int(request.topK) or 10,
+            min_score=request.min_score_threshold,
+            with_metadata=request.include_metadata,
+        )
+        resp = core_pb2.SearchBatchResponse(
+            status=True, counts=counts, scores=scores, ids=ids
+        )
+        if mds is not None:
+            resp.metadata.extend(dict_to_struct(m) for m in mds)
+        if request.with_latency:
+            resp.latency = f"{(time.perf_counter() - t0) * 1e3:.3f}ms"
+        return resp
+
+    def CompareDist(self, request, context):
+        score = CoreEngine.compare_dist(
+            _vec(request.vector_x), _vec(request.vector_y), Metric(int(request.dist))
+        )
+        return core_pb2.XyDist(score=score)
+
+
 class ExperimentalServicer:
     SERVICE = "colttpu.experimental.v1.ExperimentalMultiVectorService"
 
@@ -352,6 +562,26 @@ EDGE_RPCS: Dict[str, Tuple[type, type]] = {
     "SearchBatch": (edge_pb2.SearchBatchIndex, edge_pb2.SearchBatchResponse),
 }
 
+_CORE_RPCS: Dict[str, Tuple[type, type]] = {
+    "Ping": (empty_pb2.Empty, empty_pb2.Empty),
+    "CreateCollection": (core_pb2.CollectionSpec, core_pb2.CollectionResponse),
+    "DropCollection": (core_pb2.CollectionName, common_pb2.Response),
+    "CollectionInfof": (core_pb2.CollectionName, core_pb2.CollectionMsg),
+    "LoadCollection": (core_pb2.CollectionName, core_pb2.CollectionMsg),
+    "ReleaseCollection": (core_pb2.CollectionName, core_pb2.ResponseWithMessage),
+    "Insert": (core_pb2.DatasetChange, common_pb2.Response),
+    "BulkInsert": (core_pb2.BulkDataset, core_pb2.BulkResponse),
+    "Update": (core_pb2.DatasetChange, common_pb2.Response),
+    "Delete": (core_pb2.DatasetChange, common_pb2.Response),
+    "VectorSearch": (core_pb2.SearchRequest, core_pb2.SearchResponse),
+    "FilterSearch": (core_pb2.SearchRequest, core_pb2.SearchResponse),
+    "HybridSearch": (core_pb2.SearchRequest, core_pb2.SearchResponse),
+    "VectorSearchBatch": (
+        core_pb2.SearchBatchRequest, core_pb2.SearchBatchResponse,
+    ),
+    "CompareDist": (core_pb2.CompXyDist, core_pb2.XyDist),
+}
+
 _EXP_RPCS: Dict[str, Tuple[type, type]] = {
     "Ping": (empty_pb2.Empty, empty_pb2.Empty),
     "CreateCollection": (
@@ -379,6 +609,7 @@ _EXP_RPCS: Dict[str, Tuple[type, type]] = {
 
 RPC_TABLES = {
     EdgeServicer.SERVICE: EDGE_RPCS,
+    CoreServicer.SERVICE: _CORE_RPCS,
     ExperimentalServicer.SERVICE: _EXP_RPCS,
 }
 
@@ -446,9 +677,14 @@ def build_servicer(mode: str, cfg: Config):
         return ExperimentalServicer(ExperimentalEngine(
             _object_store(cfg), device=cfg.serving.device))
     if mode in ("root", "core"):
-        raise NotImplementedError(
-            f"mode {mode!r} is not yet ported (ROADMAP Queue 1, items 3-5: "
-            f"core storage, HNSW and the core engine)")
+        return CoreServicer(CoreEngine(
+            cfg.storage.data_dir,
+            device=cfg.serving.device,
+            kv_auto_merge_interval_s=(
+                cfg.storage.kv_auto_merge_interval_s or None
+            ),
+            kv_auto_merge_cron=cfg.storage.kv_auto_merge_cron or None,
+        ))
     raise ValueError(f"unknown mode {mode!r} (want root|edge|experimental)")
 
 

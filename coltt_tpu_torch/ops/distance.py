@@ -147,6 +147,21 @@ def scan_distances(
     return dist
 
 
+def distance_pair(x, y, metric: Metric = Metric.COSINE) -> torch.Tensor:
+    """Single-pair f32 distance (CompareDist parity, core/core.go:841-867):
+    a 0-d tensor on ``x``'s device (a CPU tensor for numpy input)."""
+    metric = Metric.parse(metric)
+    x = torch.as_tensor(x, dtype=torch.float32)
+    y = torch.as_tensor(y, dtype=torch.float32, device=x.device)
+    if metric == Metric.COSINE:
+        den = (torch.sqrt(torch.dot(x, x)) * torch.sqrt(torch.dot(y, y))).clamp(min=_EPS)
+        return 1.0 - torch.dot(x, y) / den
+    if metric == Metric.EUCLIDEAN:
+        d = x - y
+        return torch.dot(d, d)
+    return (x - y).abs().sum()
+
+
 def pairwise_distance(xs, ys, metric: Metric = Metric.COSINE):
     """[A, D] x [B, D] -> [A, B] float32 distances on raw fp32 vectors."""
     ys = torch.as_tensor(ys, dtype=torch.float32)

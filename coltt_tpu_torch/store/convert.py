@@ -4,7 +4,9 @@
 arrays of a JAX ``coltt_tpu.store.flat.FlatStore`` (fetched to numpy) and
 its slot maps; :func:`flat_store_to_arrays` is its inverse;
 ``multivec_store_from_arrays`` / ``multivec_store_to_arrays`` do the same
-for a ``MultiVectorStore`` (one array of each kind per field). The tests use
+for a ``MultiVectorStore`` (one array of each kind per field);
+``hnsw_index_from_arrays`` / ``hnsw_index_to_arrays`` for an
+``HnswIndex`` (its host arrays, levels and adjacency by level). The tests use
 them so that both packages search the same state; the snapshot bytes
 (:meth:`FlatStore.save` / ``load``) are the on-disk route.
 
@@ -29,6 +31,7 @@ from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.pq import PQCodebook
 from coltt_tpu_torch.ops.quant import Quantization, storage_dtype
 from coltt_tpu_torch.store.flat import FlatStore, _INT_VIEW
+from coltt_tpu_torch.store.hnsw import HnswConfig, HnswIndex
 from coltt_tpu_torch.store.multivec import MultiVectorStore
 
 _NP_INT = {1: np.int8, 2: np.int16, 4: np.int32}
@@ -228,3 +231,66 @@ def multivec_store_to_arrays(store: MultiVectorStore) -> dict:
             "free": list(store._free),
             "next_slot": store._next_slot,
         }
+
+
+def hnsw_index_from_arrays(
+    vectors,
+    levels,
+    alive,
+    adjacency,
+    *,
+    entry: int,
+    max_level: int,
+    count: int,
+    next_slot: int,
+    config: dict,
+    dim: Optional[int] = None,
+    metric: Metric = Metric.COSINE,
+    device_dtype=torch.float32,
+    device="cuda",
+) -> HnswIndex:
+    """A port :class:`HnswIndex` holding the state of a JAX-package index:
+    ``vectors [next, D]`` f32, ``levels [next]``, ``alive [next]``,
+    ``adjacency`` one ``[next, width]`` int32 array per level, the entry
+    point, max level, live count and next slot, and the ``HnswConfig``
+    dict (``config.to_dict()``). Rows past ``next_slot`` are copied too
+    when given (the arrays may be capacity-shaped)."""
+    vectors = np.asarray(vectors, np.float32)
+    n = int(next_slot)
+    idx = HnswIndex(dim or vectors.shape[1], metric=metric,
+                    config=HnswConfig.from_dict(config),
+                    base_capacity=max(n, vectors.shape[0], 1024),
+                    device_dtype=device_dtype, device=device)
+    rows = vectors.shape[0]
+    idx._vecs[:rows] = vectors
+    idx._sqn[:rows] = np.einsum("nd,nd->n", vectors, vectors, dtype=np.float32)
+    idx._levels[:rows] = np.asarray(levels, np.int32)
+    idx._alive[:rows] = np.asarray(alive, bool)
+    idx._adj = []
+    for a in adjacency:
+        a = np.asarray(a, np.int32)
+        full = np.full((idx._vecs.shape[0], a.shape[1]), -1, np.int32)
+        full[:a.shape[0]] = a
+        idx._adj.append(full)
+    idx._entry, idx._max_level = int(entry), int(max_level)
+    idx._count, idx._next = int(count), n
+    return idx
+
+
+def hnsw_index_to_arrays(index: HnswIndex) -> dict:
+    """The inverse of :func:`hnsw_index_from_arrays` (rows 0..next-1),
+    for a JAX or a port index alike: both keep their state in numpy."""
+    n = index._next
+    return {
+        "vectors": index._vecs[:n].copy(),
+        "levels": index._levels[:n].copy(),
+        "alive": index._alive[:n].copy(),
+        "adjacency": [a[:n].copy() for a in index._adj],
+        "entry": index._entry,
+        "max_level": index._max_level,
+        "count": index._count,
+        "next_slot": n,
+        "config": index.config.to_dict(),
+        "dim": index.dim,
+        "metric": int(index.metric),
+    }

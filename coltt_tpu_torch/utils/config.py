@@ -35,7 +35,13 @@ class RootLayerConfig:
 class StorageConfig:
     data_dir: str = "./data_dir"
     object_store_root: str = "./object_store"
-    # checkpoint backend: only "local" (filesystem) is ported; the JAX
+    # scheduled compaction of the core mode's KV commit log (diskv
+    # AutoMergeCronExpr parity, options.go:55-62): an interval in seconds
+    # (0 = off) or a 5-field cron spec (empty = off; it takes precedence
+    # over the interval when both are set)
+    kv_auto_merge_interval_s: float = 0.0
+    kv_auto_merge_cron: str = ""
+    # edge / experimental checkpoint backend: only "local" (filesystem) is ported; the JAX
     # package's "s3" client is not yet
     object_store: str = "local"
 

@@ -311,12 +311,24 @@ def test_pq_collection_flow_both_engines(tmp_path):
     _cross_load(tmp_path, name, check)
 
 
-def test_unported_modes_raise():
-    """The core mode is still to port; the experimental mode serves
-    (tests/test_torch_experimental.py)."""
+def test_unported_modes_raise(tmp_path):
+    """Every mode serves (core: tests/test_torch_core_api.py; experimental:
+    tests/test_torch_experimental.py); what is still to port, the S3
+    object store and several devices, raises, as does an unknown mode."""
     cfg = Config()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        build_servicer("root", cfg)
+    cfg.storage.data_dir = str(tmp_path / "data")
+    cfg.serving.device = "cpu"
+    servicer = build_servicer("root", cfg)
+    servicer.engine.close()
+    cfg.storage.object_store = "s3"
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_servicer("edge", cfg)
+    cfg.storage.object_store = "local"
+    cfg.serving.shards = 2
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_servicer("experimental", cfg)
+    with pytest.raises(ValueError, match="unknown mode"):
+        build_servicer("nope", cfg)
 
 
 def test_main_serves_edge_mode(tmp_path):

@@ -13,6 +13,14 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BANNED = ("jax", "jaxlib", "coltt_tpu")
+# the core mode's modules, named so that a walk that misses them fails
+CORE_MODULES = (
+    "coltt_tpu_torch.native", "coltt_tpu_torch.storage.wal",
+    "coltt_tpu_torch.storage.kv", "coltt_tpu_torch.utils.snowflake",
+    "coltt_tpu_torch.utils.cron", "coltt_tpu_torch.utils.sortedkeys",
+    "coltt_tpu_torch.store.hnsw", "coltt_tpu_torch.engine.core",
+    "coltt_tpu_torch.bench_hnsw",
+)
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -23,6 +31,7 @@ for name in names:
 banned = {banned!r}
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), loaded)
+print(" ".join(names))
 sys.exit(1 if loaded else 0)
 """
 
@@ -40,6 +49,8 @@ def test_port_modules_never_load_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     count = int(proc.stdout.split()[0])
     assert count >= 30, proc.stdout  # every module was walked
+    walked = set(proc.stdout.splitlines()[1].split())
+    assert set(CORE_MODULES) <= walked, set(CORE_MODULES) - walked
 
 
 def test_chip_smoke_imports_no_jax():
