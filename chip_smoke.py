@@ -6,9 +6,10 @@
 Builds the port's CUDA kernels from ``coltt_tpu_torch/csrc``, checks each
 against its plain PyTorch version on the card, then drives every ported
 path: the edge server over gRPC and the flagship flat index of ``python
--m coltt_tpu_torch.bench`` on the same 1M x 768d rows (phases 3-4), BQ
-and PQ (5-6), CFLAT, the experimental mode (7), and core mode, the HNSW
-store and the root server (8a, 8b).
+-m coltt_tpu_torch.bench`` on the same 1M x 768d rows (phases 3-4), the
+same rows sharded over four shards of the card (9, run right after 4),
+BQ and PQ (5-6), CFLAT, the experimental mode (7), and core mode, the
+HNSW store and the root server (8a, 8b).
 
 Phases (each exits non-zero on failure):
 
@@ -136,6 +137,34 @@ Phases (each exits non-zero on failure):
    CompareDist of a vector with itself gives 100; Release + Load return
    the same ids. K1's and K2's counts must read 0 after the phase.
 
+9. the sharded paths, run right after phase 4 on its rows (the flagship
+   collection as a multi-GPU deployment cuts it, on one card: four
+   shards, every one on ``cuda:0``). 9a: the I8 + bf16 and unit-i8
+   indexes over the 4-shard mesh and the I8 index over a 1-shard mesh.
+   K1 per shard without a rerank must give the ids of the one-device K1
+   scan of the same rows (the 4-shard layout's rows, so K1's bins are the
+   same) at every rank, ties aside; with the bf16 rerank (K1 per shard),
+   and unit-i8 (K2 per shard, one global scale), recall@10 must be no
+   lower than phase 4's; the 1-shard mesh without the bypass must equal
+   the bypass; K1's and K2's launches a search must be a multiple of the
+   shards. At 262,144 rows, 4 shards against one device: the BQ index
+   (no rerank copy; ids equal ties aside), a PQ-cache store searched
+   through K1 (equal), its exact rerank with the codes on the device and
+   on the host (equal to each other, >= 0.95 of the one-device rerank's
+   ids), and CFLAT (equal within 1e-4). 9b: an ``EdgeEngine`` over the
+   4-shard mesh checkpointing to an ``S3ObjectStore`` on
+   ``tests/fake_s3.py`` in this process: the 1M rows indexed, the plain
+   SearchBatch ids equal phase 3's ties aside, high_resource recall@10
+   >= phase 3's - 0.001, a filtered Search inside its tag, Flush ->
+   Release -> Load through S3 (bytes and MB/s printed) giving the same
+   ids. Then QPS and p50 of the flagship search on 1 shard, 1 shard
+   without the bypass and 4 shards. 9c: two processes on ``cuda:0`` over
+   gloo, each placing its half of the rows on its two shards, and one
+   process over NCCL, each under a timeout (``chip_smoke.py
+   --shard-worker``): each must return 9a's 4-shard K1 result. The one-
+   device references are searched before the counts are set to 0; 9a
+   and 9b count as ``sharded``; both kernels must launch there.
+
 Each path's launch counts are set to 0 just before it is driven and
 read just after.
 Every number printed is this run's, on the card named in phase 0. The
@@ -182,7 +211,10 @@ CORE_DIM = 128
 CORE_Q = 512
 CORE_DEPTH = 8
 CORE_GRPC_N = 131_072  # phase 8b's root-mode collection, through BulkInsert
-CORE_INSERTS = 2000
+CORE_INSERTS = 1000
+SHARDS = 4  # phase 9's mesh: four shards of the one card
+SHARD_N = 262_144  # phase 9a's BQ, PQ-cache and CFLAT checks
+SHARD_WORKER_TIMEOUT = 240  # each phase 9c worker process, seconds
 K1_EDGE_DIMS = (128, 768, 2048, 3072, 6144)  # int8 codes: any D % 128 == 0
 K2_EDGE_DIMS = (128, 768, 2048)  # K2 stops at D=2048 (its packed key)
 K1_SOURCES = {"int8-wgmma": "coltt_tpu_torch/csrc/binmax_scan.cu",
@@ -758,6 +790,7 @@ def phase_server(tmp, data, device="cuda"):
         recall_k1 = _recall(ids_k1, counts, truth)
         before = fs.binmax_scan.launches
         counts, scores, ids_plain, _ = search_batch(False)
+        scores_plain = np.asarray(scores, np.float32).reshape(len(counts), K)
         check(fs.binmax_scan.launches == before, "plain SearchBatch launched K1")
         check(all(np.isfinite(scores)), "non-finite scores")
         recall_plain = _recall(ids_plain, counts, truth)
@@ -810,7 +843,9 @@ def phase_server(tmp, data, device="cuda"):
             f"dtype and loop {by_loop}")
         check(launches["K2"] == 0, "the edge server launched K2")
         return {"launches": launches, "k1_by_loop": by_loop, "recall_k1": recall_k1,
-                "recall_plain": recall_plain}
+                "recall_plain": recall_plain,
+                "ids_plain": np.array([int(p) for p in ids_plain]).reshape(-1, K),
+                "scores_plain": scores_plain}
     finally:
         channel.close()
         server.stop(None)
@@ -913,6 +948,409 @@ def phase_flat_index(data, recall_server, device="cuda"):
     log(f"[index] launches during the flat-index run: {launches}, K1 by code "
         f"dtype and loop {by_loop}")
     return {"launches": launches, "k1_by_loop": by_loop, "recalls": recalls}
+
+
+# -- phase 9 -------------------------------------------------------------------
+
+def _same_ranks(got, want, tol, what):
+    """``(scores, ids)`` pairs: scores within ``tol`` at every rank, and
+    the same ids at every rank up to ties: within each run of ranks whose
+    wanted scores lie within ``tol`` the ids compare as sets, except the
+    last run, which k may cut. Returns the share of ranks with equal ids."""
+    (gs, gi), (ws, wi) = got, want
+    check(gs.shape == ws.shape and np.allclose(gs, ws, rtol=0, atol=tol),
+          f"{what}: scores differ (max {np.abs(gs - ws).max()})")
+    for r in range(ws.shape[0]):
+        start = 0
+        for p in range(1, ws.shape[1]):
+            if ws[r, p] < ws[r, p - 1] - tol:
+                check(set(gi[r, start:p]) == set(wi[r, start:p]),
+                      f"{what}: query {r} ranks {start}-{p - 1}: {gi[r, start:p]} "
+                      f"!= {wi[r, start:p]}")
+                start = p
+    return float((gi == wi).mean())
+
+
+def _fake_s3():
+    """``tests/fake_s3.py`` of this checkout, loaded by its path (a package
+    named ``tests`` elsewhere on the path would shadow the directory)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fake_s3.py")
+    spec = importlib.util.spec_from_file_location("coltt_fake_s3", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _counting_s3(endpoint):
+    """An ``S3ObjectStore`` on ``endpoint`` that counts the bytes its
+    streamed PUTs send and its streamed reads return (the checkpoint's
+    size)."""
+    from coltt_tpu_torch.storage.s3 import S3ObjectStore
+
+    class Counting(S3ObjectStore):
+        sent = 0
+        read_back = 0
+
+        def put_object_stream(self, bucket, name, writer):
+            store = self
+
+            class Tap:
+                def __init__(self, f):
+                    self.f = f
+
+                def write(self, b):
+                    store.sent += len(b)
+                    return self.f.write(b)
+
+            super().put_object_stream(bucket, name, lambda f: writer(Tap(f)))
+
+        def open_object(self, bucket, name):
+            body = super().open_object(bucket, name)
+            if body is None:
+                return None
+            store, read = self, body.read
+
+            def counted(n=-1):
+                b = read(n)
+                store.read_back += len(b)
+                return b
+
+            body.read = counted
+            return body
+
+    return Counting(endpoint)
+
+
+def _shard_worker_run(work, backend, nproc, device):
+    """Run ``nproc`` shard workers (``chip_smoke.py --shard-worker``) of
+    ``backend`` on this card under timeouts; returns each one's
+    ``(scores, ids)``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [os.path.dirname(os.path.abspath(__file__)),
+                      os.environ.get("PYTHONPATH")])))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard-worker",
+         f"127.0.0.1:{port}", str(nproc), str(rank), backend, work, device],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(nproc)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=SHARD_WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{backend} worker {rank} failed:\n{out[-4000:]}")
+        log(out.strip().splitlines()[-1])
+    return [(np.load(os.path.join(work, f"{backend}-{rank}-scores.npy")),
+             np.load(os.path.join(work, f"{backend}-{rank}-ids.npy")))
+            for rank in range(nproc)]
+
+
+def shard_worker(argv) -> int:
+    """One process of phase 9c: joins the process group (checking that
+    the backend rule chose ``backend``), places this process's share of
+    the 4 shards (all on this card) from the rows the parent wrote, runs
+    the raw K1 search of 9a and saves the merged result. ``argv``:
+    coordinator, process count, rank, expected backend, dir, device."""
+    import torch
+    from coltt_tpu_torch.ops import fused_scan as fs
+    from coltt_tpu_torch.ops.distance import Metric
+    from coltt_tpu_torch.ops.quant import Quantization, dequantize, quantize
+    from coltt_tpu_torch.parallel import dist_search as tds
+    from coltt_tpu_torch.parallel.multihost import (
+        assemble_global_rows, host_row_range, init_distributed, make_multihost_mesh,
+    )
+
+    coord, nproc, rank, backend, work = argv[0], int(argv[1]), int(argv[2]), argv[3], argv[4]
+    dev = torch.device(argv[5])
+    t0 = time.perf_counter()
+    devices = [dev] * (SHARDS // nproc)
+    # the rule of parallel/multihost.py must pick the expected backend
+    # from the processes' devices
+    check(init_distributed(coord, num_processes=nproc, process_id=rank, devices=devices,
+                           timeout_s=60) == nproc, "process group")
+    check(torch.distributed.get_backend() == backend,
+          f"backend rule chose {torch.distributed.get_backend()}, expected {backend}")
+    if dev.type == "cuda":
+        fs.load_kernels()
+    mesh = make_multihost_mesh(devices=devices)
+    total = np.load(os.path.join(work, "meta.npy"))[0]
+    start, end = host_row_range(int(total), mesh)
+    rows = torch.from_numpy(np.concatenate([
+        np.load(os.path.join(work, f"rows-{h}.npy"), mmap_mode="r")
+        for h in range(2)])[start:end] if nproc == 1 else
+        np.load(os.path.join(work, f"rows-{rank}.npy"))).to(dev)
+    codes, scale = quantize(rows, Quantization.I8)
+    deq = dequantize(codes, scale)
+    valid = torch.arange(start, end, device=dev) < N_ROWS
+    arrays = [assemble_global_rows(mesh, a, int(total))
+              for a in (codes, scale, (deq * deq).sum(dim=1), valid)]
+    q = torch.from_numpy(np.load(os.path.join(work, "queries.npy"))).to(dev)
+    scores, ids = tds.sharded_scan_topk(mesh, *arrays, q, k=K, metric=Metric.COSINE,
+                                        compute_dtype=torch.bfloat16, fused=True,
+                                        final="approx")
+    np.save(os.path.join(work, f"{backend}-{rank}-scores.npy"), scores.cpu().numpy())
+    np.save(os.path.join(work, f"{backend}-{rank}-ids.npy"), ids.cpu().numpy())
+    torch.distributed.destroy_process_group()
+    print(f"[sharded] {backend} worker {rank}/{nproc}: rows [{start}, {end}) on "
+          f"{mesh.local_shards} shards, {fs.binmax_scan.launches} K1 launches, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return 0
+
+
+def phase_sharded(tmp, data, server_run, index_run, device="cuda"):
+    """Phase 9: the sharded paths on one card, on phase 3's rows."""
+    import torch
+    from coltt_tpu_torch import bench
+    from coltt_tpu_torch.engine.edge import EdgeEngine
+    from coltt_tpu_torch.index.schema import CollectionSchema, FieldSchema, FieldType
+    from coltt_tpu_torch.ops import fused_scan as fs
+    from coltt_tpu_torch.ops.distance import Metric
+    from coltt_tpu_torch.ops.pq import train_pq
+    from coltt_tpu_torch.ops.quant import Quantization
+    from coltt_tpu_torch.ops.topk import compute_recall, fetch_scores_ids
+    from coltt_tpu_torch.parallel import dist_search as tds
+    from coltt_tpu_torch.parallel.mesh import make_mesh
+    from coltt_tpu_torch.store.flat import FlatStore
+
+    t_phase = time.perf_counter()
+    x, queries, truth = data
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh4 = make_mesh(SHARDS, devices=[dev] * SHARDS)
+    mesh1 = make_mesh(1, devices=[dev])
+    t0 = time.perf_counter()
+    xd = torch.from_numpy(x).to(dev)
+    i8_4 = bench.build_index(xd, mesh4, unit_i8=False)
+    i8_1 = bench.build_index(xd, mesh1, unit_i8=False)
+    unit4 = bench.build_index(xd, mesh4, unit_i8=True)
+    q_dev = torch.from_numpy(queries).to(dev)
+    log(f"[sharded] 9a: I8 + bf16 and unit-i8 indexes over {SHARDS} shards of {dev} "
+        f"({i8_4.codes.local_n} rows each) and I8 over a 1-shard mesh: "
+        f"{time.perf_counter() - t0:.2f} s")
+    raw = dict(k=K, metric=Metric.COSINE, compute_dtype=torch.bfloat16, fused=True,
+               final="approx")
+    arrays4 = (i8_4.codes, i8_4.scale, i8_4.sqnorm, i8_4.valid)
+    srk = dict(oversample=OVERSAMPLE, fused=True, final="approx")
+
+    # one-device references first, so the sharded path's counts are its own:
+    # K1 over the 4-shard layout's rows on one device (the same bins)
+    flat = [torch.cat(a.host_blocks()) for a in arrays4]
+    one_raw = fetch_scores_ids(*tds.sharded_scan_topk(dev, *flat, q_dev, **raw))
+    del flat
+    one_bypass = i8_1.search(queries, K, **srk)
+    sub = x[:SHARD_N]
+    sub_q = queries[:512]
+    bq1 = tds.DistributedFlatIndex(dev, sub, quantization=Quantization.BQ)
+    bq4 = tds.DistributedFlatIndex(mesh4, sub, quantization=Quantization.BQ)
+    one_bq = bq1.search(sub_q, K)
+    cb = train_pq(torch.from_numpy(sub).to(dev), m=DIM // 8, iters=4)
+    pq = {}
+    for name, where, host in (("one", dev, False), ("mesh", mesh4, False),
+                              ("mesh-host", mesh4, True)):
+        st = FlatStore(DIM, quantization=Quantization.PQ, pq_subspaces=DIM // 8,
+                       device=where, pq_host_codes=host)
+        st.codebook = cb
+        st.upsert_many([str(i) for i in range(SHARD_N)], sub)
+        st.sync()
+        pq[name] = st
+    one_pq = pq["one"].search(sub_q, K, fused=True)
+    one_pq4 = pq["one"].search(sub_q, K, fused=True, oversample=4)
+    xb = x[SHARD_N:2 * SHARD_N, :256]
+    fields = []
+    for part in (sub, xb):
+        t = torch.from_numpy(np.ascontiguousarray(part)).to(dev)
+        fields.append((t, None, (t * t).sum(dim=1)))
+    cvalid = torch.ones(SHARD_N, dtype=torch.bool, device=dev)
+    cq = (torch.from_numpy(sub_q).to(dev),
+          torch.from_numpy(np.ascontiguousarray(x[-len(sub_q):, :256])).to(dev))
+    ckw = dict(k=K, metric=Metric.COSINE, compute_dtype=torch.bfloat16)
+    one_cflat = fetch_scores_ids(*tds.sharded_cflat_topk(dev, fields, cvalid, cq,
+                                                          (0.7, 0.3), **ckw))
+
+    fs.reset_launch_counts()  # the sharded path's counts, 9a and 9b
+    before = (fs.binmax_scan.launches, fs.binmax_scan_i8.launches)
+    got_raw = fetch_scores_ids(*tds.sharded_scan_topk(mesh4, *arrays4, q_dev, **raw))
+    k1_per_search = fs.binmax_scan.launches - before[0]
+    check(k1_per_search > 0 and k1_per_search % SHARDS == 0,
+          f"4-shard K1 search launched K1 {k1_per_search} times")
+    eq = _same_ranks(got_raw, one_raw, 0.0, "4-shard K1 (no rerank)")
+    log(f"[sharded] K1 per shard, no rerank: ids equal to the one-device K1 scan of "
+        f"the same rows at {eq:.6f} of the ranks (ties aside: all), "
+        f"{k1_per_search} K1 launches a search")
+    scores, ids = i8_4.search(queries, K, **srk)
+    recall4 = compute_recall(ids, truth)
+    want = index_run["recalls"]["I8 K1 approx"]
+    check(((ids >= 0) & (ids < N_ROWS)).all(), "4-shard rerank returned padding")
+    check(recall4 >= want, f"4-shard K1 + rerank recall {recall4} < one-device {want}")
+    nb = i8_1.search(queries, K, bypass_single=False, **srk)
+    check((nb[1] == one_bypass[1]).all() and np.array_equal(nb[0], one_bypass[0]),
+          "bypass_single=False on 1 shard differs from the bypass")
+    before = fs.binmax_scan_i8.launches
+    scores, ids = unit4.search(queries, K, oversample=OVERSAMPLE)
+    k2_per_search = fs.binmax_scan_i8.launches - before
+    check(k2_per_search > 0 and k2_per_search % SHARDS == 0,
+          f"4-shard unit-i8 search launched K2 {k2_per_search} times")
+    recall_unit = compute_recall(ids, truth)
+    want_unit = index_run["recalls"]["unit-i8 K2 auto"]
+    check(recall_unit >= want_unit,
+          f"4-shard unit-i8 recall {recall_unit} < one-device {want_unit}")
+    log(f"[sharded] recall@{K}: 4-shard K1 + bf16 rerank {recall4:.4f} (one device "
+        f"{want:.4f}), 4-shard unit-i8 K2 {recall_unit:.4f} (one device "
+        f"{want_unit:.4f}), {k2_per_search} K2 launches a search; 1 shard without "
+        f"the bypass equals the bypass")
+    eq_bq = _same_ranks(bq4.search(sub_q, K), one_bq, 0.0, "4-shard BQ")
+    eq_pq = _same_ranks(pq["mesh"].search(sub_q, K, fused=True), one_pq, 0.0,
+                        "4-shard PQ cache (K1)")
+    pq4 = pq["mesh"].search(sub_q, K, fused=True, oversample=4)
+    pqh = pq["mesh-host"].search(sub_q, K, fused=True, oversample=4)
+    check(np.array_equal(pq4[1], pqh[1]) and np.array_equal(pq4[0], pqh[0]),
+          "4-shard PQ rerank: host codes differ from device codes")
+    pq_overlap = compute_recall(pq4[1], one_pq4[1])
+    check(pq_overlap >= 0.95, f"4-shard PQ rerank overlap {pq_overlap} with one device")
+    eq_cf = _same_ranks(fetch_scores_ids(*tds.sharded_cflat_topk(
+        mesh4, fields, cvalid, cq, (0.7, 0.3), **ckw)), one_cflat, 1e-4, "4-shard CFLAT")
+    log(f"[sharded] at {SHARD_N} rows, 4 shards against one device: BQ ids "
+        f"{eq_bq:.4f} equal (ties aside all), PQ cache through K1 {eq_pq:.4f}, "
+        f"PQ exact rerank host codes == device codes, {pq_overlap:.4f} of the "
+        f"one-device rerank's ids, CFLAT {eq_cf:.4f}")
+    del pq, bq1, bq4, fields, cq
+
+    # 9b: an edge engine over the 4-shard mesh, checkpointed through S3
+    srv, addr = _fake_s3().start_fake_s3()
+    try:
+        s3 = _counting_s3(addr)
+        eng = EdgeEngine(s3, mesh=mesh4, batch_max=0, warmup_batches=())
+        name = "sharded"
+        eng.create_collection(CollectionSchema(
+            name=name, dim=DIM, quantization=Quantization.I8,
+            fields=[FieldSchema("pk", FieldType.STRING, primary_key=True),
+                    FieldSchema("tag", FieldType.STRING)]))
+        t0 = time.perf_counter()
+        for lo in range(0, N_ROWS, BULK_ROWS):
+            hi = min(N_ROWS, lo + BULK_ROWS)
+            eng.index_many(name, [{"pk": str(i), "tag": f"t{i % TAGS}"}
+                                  for i in range(lo, hi)], x[lo:hi])
+        ingest_s = time.perf_counter() - t0
+
+        def batch(hr):
+            counts, scores, pks, _ = eng.search_batch(name, queries, limit=K,
+                                                      high_resource=hr)
+            check(counts == [K] * len(counts), f"9b counts {set(counts)}")
+            return (np.asarray(scores, np.float32).reshape(-1, K),
+                    np.array([int(p) for p in pks]).reshape(-1, K))
+
+        plain = batch(False)
+        store = eng._collections[name].store
+        check(store.mesh is mesh4 and store.capacity == SERVING_N,
+              f"9b store layout {store.mesh} {store.capacity}")
+        eq_plain = _same_ranks(plain, (server_run["scores_plain"], server_run["ids_plain"]),
+                               1e-4, "9b plain SearchBatch vs phase 3")
+        hr = batch(True)
+        recall_hr = compute_recall(hr[1], truth)
+        check(recall_hr >= server_run["recall_k1"] - 0.001,
+              f"9b high_resource recall {recall_hr} < phase 3's "
+              f"{server_run['recall_k1']} - 0.001")
+        from coltt_tpu_torch.index.filter import Filter, Op
+
+        hits = eng.search(name, queries[0], limit=K,
+                          filter_expression=Filter("tag", Op.EQ, "t3"))
+        check(len(hits) == K and all(h.metadata["tag"] == "t3" and int(h.id) % TAGS == 3
+                                     for h in hits), "9b filtered search left its rows")
+        sent, t0 = s3.sent, time.perf_counter()
+        eng.flush(name)
+        flush_s = time.perf_counter() - t0
+        flushed = s3.sent - sent
+        eng.release_collection(name)
+        t0 = time.perf_counter()
+        eng.load_collection(name)
+        load_s = time.perf_counter() - t0
+        check(eng._collections[name].store.mesh is mesh4, "9b reload lost the mesh")
+        again_plain, again_hr = batch(False), batch(True)
+        check(np.array_equal(again_plain[1], plain[1]) and np.array_equal(again_hr[1], hr[1]),
+              "9b SearchBatch after the S3 reload returned other ids")
+        vertex = s3.read_back
+        log(f"[sharded] 9b: edge engine over {SHARDS} shards, S3 object store: "
+            f"{N_ROWS} rows indexed in {ingest_s:.2f} s; plain SearchBatch ids equal "
+            f"phase 3's at {eq_plain:.6f} of the ranks (ties aside all); high_resource "
+            f"recall@{K} {recall_hr:.4f} (phase 3 {server_run['recall_k1']:.4f}); "
+            f"filtered Search ok; Flush {flushed} bytes in {flush_s:.2f} s = "
+            f"{flushed / flush_s / 1e6:.1f} MB/s, Load {vertex} bytes of the vertex in "
+            f"{load_s:.2f} s = {vertex / load_s / 1e6:.1f} MB/s; same ids after")
+        del eng, store
+    finally:
+        srv.shutdown()
+    launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
+    by_loop = dict(fs.binmax_scan.launches_by)
+    check(launches["K1"] > 0 and launches["K2"] > 0,
+          f"the sharded path launched K1 {launches['K1']}, K2 {launches['K2']} times")
+    log(f"[sharded] launches during the sharded run (9a, 9b): {launches}, K1 by code "
+        f"dtype and loop {by_loop}")
+
+    # QPS and p50 of the flagship search on 1 shard, 1 without the bypass, 4
+    rng = np.random.default_rng(SEED + 9)
+    q_batches = [torch.from_numpy(rng.standard_normal((QUERIES, DIM), dtype=np.float32))
+                 .to(dev) for _ in range(8)]
+    timing = {}
+    for label, idx, bypass in (("1", i8_1, True), ("1-no-bypass", i8_1, False),
+                               ("4", i8_4, True)):
+        def dispatch(q, idx=idx, bypass=bypass):
+            return idx.search_tensors(q, K, bypass_single=bypass, **srk)
+
+        _, p50, qps, _ = bench.time_dispatch(dispatch, q_batches, warm=1, rounds=2)
+        timing[label] = {"qps": qps, "p50_ms": p50}
+    log(f"[sharded] flagship search, Q={QUERIES}, 8 queued, median of 2: "
+        + ", ".join(f"{k} shard(s) {v['qps']:.1f} QPS p50 {v['p50_ms']:.2f} ms"
+                    for k, v in timing.items())
+        + f"; 4 shards at {timing['4']['qps'] / timing['1']['qps']:.3f} of one")
+    if dev.type == "cuda":
+        prof = {n: bench.device_profile(idx, np.random.default_rng(SEED + 2))
+                for n, idx in (("1", i8_1), ("4", i8_4))}
+        log(f"[sharded] one queued round of {bench.DEPTH} x {bench.BATCH} queries "
+            f"under torch.profiler, 1 shard and 4 shards: {json.dumps(prof)}")
+    del i8_1, i8_4, unit4, xd
+
+    # 9c: two processes on this card over gloo, then one process over NCCL
+    work = os.path.join(tmp, "shard-workers")
+    os.makedirs(work, exist_ok=True)
+    total = arrays4[0].shape[0]
+    half = total // 2
+    np.save(os.path.join(work, "rows-0.npy"), x[:half])
+    np.save(os.path.join(work, "rows-1.npy"), np.concatenate(
+        [x[half:], np.zeros((total - N_ROWS, DIM), np.float32)]))
+    np.save(os.path.join(work, "queries.npy"), queries)
+    np.save(os.path.join(work, "meta.npy"), np.array([total]))
+    del arrays4
+    for backend, nproc in (("gloo", 2), ("nccl", 1))[:2 if dev.type == "cuda" else 1]:
+        t0 = time.perf_counter()
+        outs = _shard_worker_run(work, backend, nproc, str(dev))
+        for rank, out in enumerate(outs):
+            check(np.array_equal(out[1], got_raw[1]) and np.allclose(
+                out[0], got_raw[0], rtol=0, atol=1e-5),
+                f"9c {backend} rank {rank}: the merged result differs from 9a's")
+        log(f"[sharded] 9c: {nproc} process(es) over {backend} on {dev}, each placing "
+            f"its own rows: the 4-shard K1 result of 9a, {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"[sharded] phase 9 in {phase_s:.1f} s")
+    return {"launches": launches, "k1_by_loop": by_loop, "k1_per_search": k1_per_search,
+            "k2_per_search": k2_per_search, "recall_rerank": recall4,
+            "recall_unit_i8": recall_unit, "recall_edge_hr": recall_hr,
+            "timing": timing, "checkpoint_bytes": flushed, "flush_s": flush_s,
+            "load_s": load_s, "seconds": phase_s}
 
 
 # -- phases 5 and 6 ------------------------------------------------------------
@@ -1559,9 +1997,9 @@ def _core_store(dev):
     for _ in range(2):
         _, ids = idx.search(eval_q, K)
         check(not set(victims) & set(ids.ravel().tolist()), "core: a deleted slot came back")
-    # one round of 4 batches: a search racing the writer thread for the
+    # one round of 2 batches: a search racing the writer thread for the
     # interpreter lock takes seconds (PERF.md section 5)
-    mutate = bh.mutate_qps(idx, q_batches[:4], extra, warm=0, rounds=1)
+    mutate = bh.mutate_qps(idx, q_batches[:2], extra, warm=0, rounds=1)
     truth = _search_truth(idx, eval_q, dev)
     recall_mut = float(compute_recall(idx.search(eval_q, K)[1], truth))
     log(f"[core] deleted slots gone; interleaved mutate/search: {mutate['qps']:.1f} QPS, "
@@ -1755,6 +2193,7 @@ def main() -> int:
         data = make_data()
         run = phase_server(tmp, data)
         index_run = phase_flat_index(data, run["recall_k1"])
+        sharded_run = phase_sharded(tmp, data, run, index_run)
         del data
         bq_run = phase_bq(os.path.join(tmp, "bq"))
         pq_run = phase_pq(os.path.join(tmp, "pq"))
@@ -1771,7 +2210,8 @@ def main() -> int:
         key = (rec["codes"], rec["loop"])
         rec["launches_by_path"] = {"edge_server": run["k1_by_loop"].get(key, 0),
                                    "flat_index": index_run["k1_by_loop"].get(key, 0),
-                                   "edge_pq": pq_run["k1_by_loop"].get(key, 0)}
+                                   "edge_pq": pq_run["k1_by_loop"].get(key, 0),
+                                   "sharded": sharded_run["k1_by_loop"].get(key, 0)}
         rec["launches"] = rec["launches_by_path"]["flat_index"]
     top = next(r for r in k1_records if r["loop"] == "int8-wgmma" and r["q"] == QUERIES)
     kernels = [{
@@ -1783,6 +2223,7 @@ def main() -> int:
         "launches_by_path": {"edge_server": run["launches"]["K1"],
                              "flat_index": index_run["launches"]["K1"],
                              "edge_pq": pq_run["k1_launches"],
+                             "sharded": sharded_run["launches"]["K1"],
                              "cflat": cflat_run["launches"]["K1"],
                              "core": core_run["launches"]["K1"]},
         **{k: top[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
@@ -1796,11 +2237,14 @@ def main() -> int:
         "launches": index_run["launches"]["K2"],
         "launches_by_path": {"edge_server": run["launches"]["K2"],
                              "flat_index": index_run["launches"]["K2"],
+                             "sharded": sharded_run["launches"]["K2"],
                              "cflat": cflat_run["launches"]["K2"],
                              "core": core_run["launches"]["K2"]},
         **k2_record,
     }]
-    log(json.dumps({"bq": bq_run, "pq": {k: v for k, v in pq_run.items()
+    log(json.dumps({"sharded": {k: v for k, v in sharded_run.items()
+                                 if k != "k1_by_loop"},
+                    "bq": bq_run, "pq": {k: v for k, v in pq_run.items()
                                           if k != "k1_by_loop"},
                     "cflat": cflat_run, "core": core_run}, default=str))
     print(json.dumps({"kernels": kernels}))
@@ -1811,4 +2255,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-worker"]:  # a phase 9c process
+        sys.exit(shard_worker(sys.argv[2:]))
     sys.exit(main())

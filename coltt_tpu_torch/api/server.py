@@ -20,6 +20,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import grpc
 import numpy as np
+import torch
 from google.protobuf import empty_pb2
 
 import coltt_tpu_torch.api  # noqa: F401  (puts gen/ on sys.path)
@@ -640,30 +641,56 @@ def generic_handler(servicer) -> grpc.GenericRpcHandler:
 
 
 def _object_store(cfg: Config):
-    """Checkpoint backend: the local filesystem object store."""
-    if cfg.storage.object_store != "local":
-        raise NotImplementedError(
-            f"object store {cfg.storage.object_store!r} is not ported yet "
-            f"(ROADMAP Queue 1, S3)")
+    """Checkpoint backend: local FS (default) or the network S3/MinIO
+    client (pkg/minio parity — NewEdge dials MinIO at boot, edge/edge.go:36)."""
+    if cfg.storage.object_store == "s3":
+        from coltt_tpu_torch.storage.s3 import S3ObjectStore
+
+        return S3ObjectStore(
+            cfg.storage.s3_endpoint,
+            cfg.storage.s3_access_key,
+            cfg.storage.s3_secret_key,
+            region=cfg.storage.s3_region,
+            secure=cfg.storage.s3_secure,
+        )
     from coltt_tpu_torch.storage.objectstore import LocalObjectStore
 
     return LocalObjectStore(cfg.storage.object_store_root)
 
 
-def _one_shard(cfg: Config) -> None:
-    if int(cfg.serving.shards) != 1:
-        raise NotImplementedError(
-            "[serving].shards != 1 is not ported yet (ROADMAP Queue 1, "
-            "item 7, multi-device)")
+def _serving_mesh(cfg: Config):
+    """[serving].shards -> device mesh (None = single-device serving).
+    shards=0 uses every visible CUDA device; more shards than visible CUDA
+    devices raises. With ``[serving] device = "cpu"`` the mesh repeats the
+    CPU device (a test deployment: the shards share the host)."""
+    shards = int(cfg.serving.shards)
+    if shards == 1:
+        return None
+    from coltt_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device(cfg.serving.device)
+    if device.type == "cpu":
+        if shards < 1:
+            raise ValueError(
+                '[serving].shards=0 means every CUDA device; with device = "cpu" '
+                "give the shard count")
+        return make_mesh(shards, devices=[device] * shards)
+    n_dev = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if shards == 0:
+        shards = n_dev
+    if shards > n_dev:
+        raise ValueError(
+            f"[serving].shards={shards} exceeds available CUDA devices ({n_dev})")
+    return make_mesh(shards) if shards > 1 else None
 
 
 def build_servicer(mode: str, cfg: Config):
     """Mode dispatcher (NewRootLayer parity, root_layer/root_layer.go:30-37)."""
     if mode == "edge":
-        _one_shard(cfg)
         return EdgeServicer(EdgeEngine(
             _object_store(cfg),
             device=cfg.serving.device,
+            mesh=_serving_mesh(cfg),
             batch_max=cfg.serving.scan_batch_max,
             batch_wait_s=cfg.serving.scan_batch_wait_ms / 1e3,
             pq_opq_iters=cfg.serving.pq_opq_iters,
@@ -673,9 +700,9 @@ def build_servicer(mode: str, cfg: Config):
             ),
         ))
     if mode == "experimental":
-        _one_shard(cfg)
         return ExperimentalServicer(ExperimentalEngine(
-            _object_store(cfg), device=cfg.serving.device))
+            _object_store(cfg), device=cfg.serving.device,
+            mesh=_serving_mesh(cfg)))
     if mode in ("root", "core"):
         return CoreServicer(CoreEngine(
             cfg.storage.data_dir,

@@ -8,7 +8,9 @@ rows, int8 codes with a bf16 rerank copy, the fused scan with
 ``final="approx"`` (an exact top-k over the bin survivors in the port),
 a k x 4 shortlist reranked to k=10, 2048-query batches. ``--unit-i8``
 serves the same rows from a unit-norm, global-scale int8 index through
-K2 instead (selection "auto", i.e. slot2 at this size).
+K2 instead (selection "auto", i.e. slot2 at this size). As the JAX
+package's bench, the index is built over a mesh of every visible card
+(``make_mesh``): on one card that is the one-device path.
 
 Measured on the card, after a first (warm-up) call:
 
@@ -45,6 +47,7 @@ from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.quant import Quantization
 from coltt_tpu_torch.ops.topk import compute_recall, fetch_scores_ids
 from coltt_tpu_torch.parallel.dist_search import DistributedFlatIndex
+from coltt_tpu_torch.parallel.mesh import make_mesh
 
 N_ROWS = 1_000_000
 DIM = 768
@@ -65,7 +68,8 @@ def log(*a):
 
 
 def build_index(vectors, device, *, unit_i8: bool) -> DistributedFlatIndex:
-    """The flagship index over ``vectors`` (numpy or a tensor)."""
+    """The flagship index over ``vectors`` (numpy or a tensor), on a
+    device or a mesh."""
     return DistributedFlatIndex(
         device, vectors, metric=Metric.COSINE, quantization=Quantization.I8,
         rerank_dtype=torch.bfloat16, unit_i8=unit_i8,
@@ -170,7 +174,9 @@ def run(idx: DistributedFlatIndex, gt_idx: DistributedFlatIndex,
     rerank = " + bf16 rerank" if idx.rr_codes is not None else ""
     path = ("unit-i8 K2 + bf16 rerank, final=auto" if idx.unit_i8 else
             f"fused-{idx.quantization.name.lower()} K1{rerank}, final={FINAL}")
-    where = "one GPU" if device.type == "cuda" else f"the {device.type}"
+    cards = idx.mesh.shards if idx.mesh is not None else 1
+    where = ((f"{cards} GPUs" if cards > 1 else "one GPU") if device.type == "cuda"
+             else f"the {device.type}")
     return {
         "metric": f"FLAT {path}: QPS on {where} at recall@{K} "
                   f"({idx.n} x {dim}d, batch={batch}, queued depth={depth}, "
@@ -268,8 +274,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    mesh = make_mesh(num_shards=torch.cuda.device_count())
     dev = card()
-    log(f"device: {dev}")
+    log(f"device: {dev}; mesh {mesh}")
 
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -278,8 +285,8 @@ def main(argv=None) -> int:
     log(f"data {N_ROWS} x {DIM} f32 from seed {SEED}: "
         f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    idx = build_index(vecs, device, unit_i8=args.unit_i8)
-    gt_idx = DistributedFlatIndex(device, vecs, metric=Metric.COSINE,
+    idx = build_index(vecs, mesh, unit_i8=args.unit_i8)
+    gt_idx = DistributedFlatIndex(mesh, vecs, metric=Metric.COSINE,
                                   quantization=Quantization.NONE)
     del vecs
     torch.cuda.synchronize()

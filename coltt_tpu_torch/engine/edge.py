@@ -10,9 +10,13 @@ expression returning 0-100 scores + metadata.
 
 The checkpoint objects are byte-compatible with the JAX package's, so
 either engine loads what the other flushed. Every collection's tensors live
-on the engine's ``device``. ``high_resource_avaliable`` (the reference's
-highCpu toggle) selects the fused scan kernel where the store's shape
-supports it; the default scan is the plain exact one. BQ collections scan
+on the engine's ``device``, or, given a ``mesh`` (``[serving].shards``),
+row-sharded over it: every search is then the shard-local scan and merge
+of ``parallel/dist_search.py``, the reference's goroutine-per-shard scan
+(edge/f16_vectorstore.go:138-170) as devices.
+``high_resource_avaliable`` (the reference's highCpu toggle) selects the
+fused scan kernel where the store's shape supports it; the default scan is
+the plain exact one. BQ collections scan
 their packed sign bits and rerank; PQ collections train their codebook
 (with OPQ, ``pq_opq_iters`` rounds) on the first synced batch and serve
 from the f8 reconstruction cache with a k x 4 shortlist reranked against
@@ -38,6 +42,7 @@ from coltt_tpu_torch.index.bitmap import InvertedIndex
 from coltt_tpu_torch.index.filter import FilterExpression, filter_from_dict
 from coltt_tpu_torch.index.schema import CollectionSchema, SchemaError
 from coltt_tpu_torch.ops.fused_scan import load_kernels
+from coltt_tpu_torch.parallel.mesh import split
 from coltt_tpu_torch.storage.objectstore import LocalObjectStore
 from coltt_tpu_torch.store.flat import FlatStore
 from coltt_tpu_torch.utils.logging import get_logger
@@ -70,12 +75,16 @@ class EdgeEngine:
         object_store: LocalObjectStore,
         *,
         device="cuda",
+        mesh=None,
         batch_max: int = 2048,
         batch_wait_s: float = 0.002,
         pq_opq_iters: int = 4,
         warmup_batches=(1, 8, 64),
     ):
-        self.device = torch.device(device)
+        # multi-device serving ([serving].shards): every collection's
+        # FlatStore shards its rows over this mesh
+        self.mesh, self.device, self._placement = split(
+            mesh if mesh is not None else device)
         # OPQ rounds of a PQ collection's training ([serving].pq_opq_iters)
         self._pq_opq_iters = int(pq_opq_iters)
         if self.device.type == "cuda":
@@ -120,7 +129,7 @@ class EdgeEngine:
                     schema.dim,
                     metric=schema.metric,
                     quantization=schema.quantization,
-                    device=self.device,
+                    device=self._placement,
                     pq_opq_iters=self._pq_opq_iters,
                 ),
                 inverted=InvertedIndex(fields=[f.name for f in schema.fields]),
@@ -167,10 +176,12 @@ class EdgeEngine:
             if self.state.loaded(name) and name in self._collections:
                 return self.get_collection(name)
             raw_meta = self.objects.get_object(name, META_OBJ.format(name=name))
+            # the small objects first: no other request waits behind the
+            # open vertex stream (a server may serve one body at a time)
+            raw_inv = self.objects.get_object(name, INVERTED_OBJ.format(name=name))
             vertex_f = self.objects.open_object(
                 name, VERTEX_OBJ.format(name=name)
             )
-            raw_inv = self.objects.get_object(name, INVERTED_OBJ.format(name=name))
             if raw_meta is None or vertex_f is None or raw_inv is None:
                 if vertex_f is not None:
                     vertex_f.close()
@@ -460,5 +471,5 @@ class EdgeEngine:
         md_len = int.from_bytes(f.read(8), "big")
         md_items = msgpack.unpackb(f.read(md_len), raw=False)
         metadata = {int(slot): md for slot, md in md_items}
-        store = FlatStore.load(f, device=self.device)
+        store = FlatStore.load(f, device=self._placement)
         return store, metadata

@@ -13,7 +13,9 @@ The checkpoint objects are byte-compatible with the JAX package's
 (``<col>.vertex``: an 8-byte big-endian length, a msgpack side-car of the
 metadata and the inverted index, then the ``CTTMVEC1`` store snapshot), so
 either engine loads what the other flushed. Every collection's tensors
-live on the engine's ``device``.
+live on the engine's ``device``, or, given a ``mesh``
+(``[serving].shards``), row-sharded over it and searched by
+``sharded_cflat_topk``'s shard-local scans and merge.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from coltt_tpu_torch.engine.errors import EngineError, ErrorCode
 from coltt_tpu_torch.engine.state import CollectionStateManager
 from coltt_tpu_torch.index.bitmap import InvertedIndex
 from coltt_tpu_torch.index.schema import CollectionSchema, FieldType, SchemaError
+from coltt_tpu_torch.parallel.mesh import split
 from coltt_tpu_torch.storage.objectstore import LocalObjectStore
 from coltt_tpu_torch.store.multivec import MultiVectorStore
 from coltt_tpu_torch.utils.logging import get_logger
@@ -58,8 +61,11 @@ class MvSearchHit:
 
 
 class ExperimentalEngine:
-    def __init__(self, object_store: LocalObjectStore, *, device="cuda"):
-        self.device = torch.device(device)
+    def __init__(self, object_store: LocalObjectStore, *, device="cuda", mesh=None):
+        # multi-device serving ([serving].shards): every collection's
+        # MultiVectorStore shards its rows over this mesh
+        self.mesh, self.device, self._placement = split(
+            mesh if mesh is not None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {device!r} requested but torch sees no CUDA device")
@@ -85,7 +91,7 @@ class ExperimentalEngine:
                     {f: schema.dim for f in schema.vector_fields},
                     metric=schema.metric,
                     quantization=schema.quantization,
-                    device=self.device,
+                    device=self._placement,
                 ),
                 inverted=InvertedIndex(
                     fields=[f.name for f in schema.fields if f.type != FieldType.VECTOR]
@@ -139,7 +145,7 @@ class ExperimentalEngine:
             try:
                 side_len = int.from_bytes(vertex_f.read(8), "big")
                 side = msgpack.unpackb(vertex_f.read(side_len), raw=False)
-                store = MultiVectorStore.load(vertex_f, device=self.device)
+                store = MultiVectorStore.load(vertex_f, device=self._placement)
             finally:
                 vertex_f.close()
             col = _MvCollection(

@@ -599,7 +599,7 @@ def _check_final(final: str) -> None:
     if final not in ("auto", "exact", "approx", "slot2"):
         raise NotImplementedError(
             f"final={final!r} is a measurement-only selection of the JAX "
-            f"package and is not ported (ROADMAP Queue 1, item 3)")
+            f"package, left behind on purpose (ROADMAP Queue 1)")
 
 
 def fused_scan_topk(

@@ -8,6 +8,9 @@
 :func:`pq_codebook_from_arrays` carries a codebook the JAX package
 trained. The tests use them so that both packages search the same state.
 Codes and the rerank copy cross as raw bits, as in ``store/convert.py``.
+``device`` may be a :class:`~coltt_tpu_torch.parallel.mesh.Mesh`: the rows
+are then cut into its shards, as a JAX index sharded over as many devices
+holds them (the global arrays are the same either way).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.quant import Quantization, storage_dtype
 from coltt_tpu_torch.parallel.dist_search import DistributedFlatIndex, DistributedPQIndex
+from coltt_tpu_torch.parallel.mesh import ShardedRows, replicate, split
 from coltt_tpu_torch.store.convert import (
     _from_bits,
     _to_bits,
@@ -64,21 +68,38 @@ def flat_index_from_arrays(
         code_dtype = torch.int32
     else:
         code_dtype = torch.int8 if idx.unit_i8 else storage_dtype(idx.quantization)
-    idx.codes = _from_bits(codes, code_dtype).reshape(rows, -1).to(idx.device)
-    idx.valid = torch.from_numpy(np.array(valid, bool).reshape(rows)).to(idx.device)
+    put = _placer(idx.mesh, idx.device)
+    idx.codes = put(_from_bits(codes, code_dtype).reshape(rows, -1))
+    idx.valid = put(torch.from_numpy(np.array(valid, bool).reshape(rows)))
 
     def f32(a, shape):
         return (None if a is None else
-                torch.from_numpy(np.array(a, np.float32).reshape(shape)).to(idx.device))
+                put(torch.from_numpy(np.array(a, np.float32).reshape(shape))))
 
     idx.scale = f32(scale, (rows, 1))
     idx.sqnorm = f32(sqnorm, (rows,))
-    idx.gscale = f32(gscale, ())
+    idx.gscale = None
+    if gscale is not None:
+        g = torch.tensor(float(np.float32(gscale)), dtype=torch.float32)
+        idx.gscale = g.to(idx.device) if idx.mesh is None else replicate(idx.mesh, g)
     idx.bin_live = (None if bin_live is None else
-                    torch.from_numpy(np.array(bin_live, bool).reshape(-1)).to(idx.device))
+                    put(torch.from_numpy(np.array(bin_live, bool).reshape(-1))))
     idx.rr_codes = (None if rr_codes is None else
-                    _from_bits(rr_codes, rerank_dtype).reshape(rows, dim).to(idx.device))
+                    put(_from_bits(rr_codes, rerank_dtype).reshape(rows, dim)))
     return idx
+
+
+def _placer(mesh, device):
+    """Host tensor -> the index's layout: on ``device``, or cut into the
+    mesh's shards."""
+    if mesh is None:
+        return lambda t: t.to(device)
+    return lambda t: ShardedRows.place(mesh, t)
+
+
+def _gscale(g) -> float:
+    """A unit-i8 index's global scale (a tensor, or a mesh's replicas)."""
+    return float(next(iter(g.values())) if isinstance(g, dict) else g)
 
 
 def flat_index_to_arrays(idx: DistributedFlatIndex) -> dict:
@@ -97,7 +118,7 @@ def flat_index_to_arrays(idx: DistributedFlatIndex) -> dict:
         "scale": host(idx.scale),
         "sqnorm": host(idx.sqnorm),
         "rr_codes": None if idx.rr_codes is None else _to_bits(idx.rr_codes),
-        "gscale": None if idx.gscale is None else float(idx.gscale),
+        "gscale": None if idx.gscale is None else _gscale(idx.gscale),
         "bin_live": host(idx.bin_live),
         "compute_dtype": idx.compute_dtype,
         "rerank_dtype": idx.rerank_dtype,
@@ -111,14 +132,15 @@ def pq_index_from_arrays(*, metric, codes: np.ndarray, sqnorm: np.ndarray,
     JAX ``DistributedPQIndex``'s, fetched) and ``codebook``
     (:func:`pq_codebook_to_arrays`'s dict)."""
     idx = DistributedPQIndex.__new__(DistributedPQIndex)
-    idx.device = torch.device(device)
+    idx.mesh, idx.device, idx.placement = split(device)
     idx.metric = Metric.parse(metric)
     idx.compute_dtype = torch.bfloat16 if compute_dtype is None else compute_dtype
     idx.codebook = pq_codebook_from_arrays(**codebook, device=idx.device)
-    idx.codes = torch.from_numpy(np.array(codes, np.uint8)).to(idx.device)
+    put = _placer(idx.mesh, idx.device)
+    idx.codes = put(torch.from_numpy(np.array(codes, np.uint8)))
     idx.n, idx.dim = idx.codes.shape[0], idx.codebook.dim
-    idx.sqnorm = torch.from_numpy(np.array(sqnorm, np.float32)).to(idx.device)
-    idx.valid = torch.from_numpy(np.array(valid, bool)).to(idx.device)
+    idx.sqnorm = put(torch.from_numpy(np.array(sqnorm, np.float32)))
+    idx.valid = put(torch.from_numpy(np.array(valid, bool)))
     return idx
 
 

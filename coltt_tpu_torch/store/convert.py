@@ -98,7 +98,9 @@ def flat_store_from_arrays(
     what the store scans (a PQ-cache store's f8 cache); ``pqcodes`` a
     PQ-cache store's code rows, ``rr_codes`` / ``rr_scale`` a BQ store's
     rerank copy, ``codebook`` a PQ store's (:func:`pq_codebook_to_arrays`);
-    ``options`` are the FlatStore's PQ / BQ settings."""
+    ``options`` are the FlatStore's PQ / BQ settings. ``device`` may be a
+    mesh: the rows are then cut into its shards (capacity padded to the
+    mesh's quantum)."""
     store = FlatStore(dim, metric=Metric.parse(metric),
                       quantization=Quantization.parse(quantization),
                       device=device, **options)
@@ -123,6 +125,7 @@ def flat_store_from_arrays(
         store.rr_scale = torch.from_numpy(
             np.array(rr_scale, np.float32).reshape(cap, 1)).to(dev)
     store.capacity = cap
+    store._fit_layout()
     store.pk_to_slot = dict(pk_to_slot)
     store.slot_to_pk = {slot: pk for pk, slot in store.pk_to_slot.items()}
     store._free = list(free)
@@ -187,11 +190,12 @@ def multivec_store_from_arrays(
     1]``, ``sqnorm [cap]``), the shared ``valid [cap]`` and the slot maps.
     ``next_slot`` defaults to one past the highest used slot. Each array
     may also be a torch tensor (codes of the storage dtype), which is
-    moved to ``device`` without a host copy."""
+    moved to ``device`` without a host copy. ``device`` may be a mesh: the
+    rows are then cut into its shards."""
     cap = valid.shape[0]
     store = MultiVectorStore(fields, metric=Metric.parse(metric),
                              quantization=Quantization.parse(quantization),
-                             base_capacity=cap, device=device)
+                             device=device)
     dev = store.device
 
     def put(a, dtype, shape, *, bits=False):
@@ -206,6 +210,7 @@ def multivec_store_from_arrays(
         store.sqnorm[name] = put(sqnorm[name], torch.float32, (cap,))
     store.valid = put(valid, torch.bool, (cap,))
     store.capacity = cap
+    store._fit_layout()
     store.pk_to_slot = dict(pk_to_slot)
     store.slot_to_pk = {slot: pk for pk, slot in store.pk_to_slot.items()}
     store._free = list(free)

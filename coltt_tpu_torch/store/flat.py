@@ -37,6 +37,19 @@ Filtered search gathers the candidate rows when there are few
 (``capacity // 6``) and scans them with the plain scan; otherwise it masks
 a full scan (through K1 under ``fused``). ``bench_filtered.py`` times the
 three regimes on the card.
+
+Over a :class:`~coltt_tpu_torch.parallel.mesh.Mesh` (``device=mesh``, the
+reference's ``mesh``) every row tensor is
+:class:`~coltt_tpu_torch.parallel.mesh.ShardedRows`: slot ``s`` lives on
+shard ``s // (capacity / shards)``. Capacity is a multiple of ``shards x
+8192`` rows, so every shard's rows suit K1. ``sync`` routes each staged
+row to its shard (out of place per touched shard while a search holds
+the store), growth re-cuts the blocks, and every search is the
+shard-local scan and merge of ``parallel/dist_search.py``: a filtered one
+always masks the scan (gathering would pull rows across shards), and a
+host-codes PQ store keeps its exact rerank, shard by shard (the
+reference's ``flat.py:1090`` serves such a store without it; the port
+keeps the one-device results). A one-device mesh is the one-device store.
 """
 
 from __future__ import annotations
@@ -53,20 +66,15 @@ import torch
 from coltt_tpu_torch.ops.bq import (
     bq_decode,
     bq_encode,
-    bq_scan_neg_topk,
     bq_words,
-    hamming_to_neg_cos_dist,
 )
 from coltt_tpu_torch.ops.distance import Metric
-from coltt_tpu_torch.ops.fused_scan import fused_scan_topk
-from coltt_tpu_torch.ops.fused_scan import supports as fused_supports
 from coltt_tpu_torch.ops.pq import (
     PQCodebook,
     _reconstruct,
     default_subspaces,
     pq_encode,
     pq_reconstruct,
-    pq_rescore_rows,
     pq_scan_topk,
     pq_sqnorm,
     train_pq,
@@ -75,11 +83,16 @@ from coltt_tpu_torch.ops.quant import Quantization, dequantize, quantize, storag
 from coltt_tpu_torch.ops.topk import (
     fetch_scores_ids,
     fit_rows,
-    rerank_neg_topk,
     scan_topk,
     scores_from_negd,
 )
-from coltt_tpu_torch.parallel.dist_search import sharded_scan_topk, shortlist_scan
+from coltt_tpu_torch.parallel.dist_search import (
+    bq_shortlist_topk,
+    sharded_bq_topk,
+    sharded_pq_topk,
+    sharded_scan_topk,
+)
+from coltt_tpu_torch.parallel.mesh import ShardedRows, replicate, split
 
 _CAPACITY_QUANTUM = 8192
 # filtered searches with fewer than capacity // _GATHER_FRACTION candidates
@@ -97,11 +110,36 @@ _SNAPSHOT_MAGIC = b"CTTFLAT1"
 _INT_VIEW = {1: torch.int8, 2: torch.int16, 4: torch.int32}
 
 
-def _round_capacity(n: int) -> int:
-    cap = _CAPACITY_QUANTUM
+def _round_capacity(n: int, quantum: int = _CAPACITY_QUANTUM) -> int:
+    """The least ``quantum * 2**j`` >= ``n`` (a mesh's quantum is ``shards
+    x 8192``)."""
+    cap = quantum
     while cap < n:
         cap *= 2
     return cap
+
+
+def state_row(t, slot: int) -> torch.Tensor:
+    """Row ``slot`` of a state tensor or ShardedRows."""
+    return t.row(slot) if isinstance(t, ShardedRows) else t[slot]
+
+
+def scatter_rows(t, slots_np: np.ndarray, slots, src, *, inplace: bool):
+    """``t`` with rows ``src`` written at ``slots`` (sorted; numpy and a
+    device tensor of the same), in place or into new tensors."""
+    if isinstance(t, ShardedRows):
+        return t.scatter(slots_np, src, inplace=inplace)
+    if inplace:
+        return t.index_put_((slots,), src)
+    return t.index_put((slots,), src)
+
+
+def grow_rows(t, n: int, fill=0.0):
+    """``t`` padded to ``n`` rows of ``fill`` (new tensors, so live search
+    snapshots keep the old ones)."""
+    if isinstance(t, ShardedRows):
+        return t.regrow(n, fill)
+    return torch.cat([t, t.new_full((n - t.shape[0], *t.shape[1:]), fill)])
 
 
 def tensor_to_bytes(t: torch.Tensor) -> bytes:
@@ -124,8 +162,13 @@ _SAVE_ROWS = 131_072  # rows fetched per device->host chunk on save
 
 
 def write_rows(f, t) -> None:
-    """Stream a tensor (or a host array) to ``f`` in row chunks, so the
-    host never holds more than one chunk of it."""
+    """Stream a tensor, a ShardedRows (shard by shard) or a host array to
+    ``f`` in row chunks, so the host never holds more than one chunk of
+    it."""
+    if isinstance(t, ShardedRows):
+        for block in t.host_blocks():
+            write_rows(f, block)
+        return
     for i in range(0, t.shape[0], _SAVE_ROWS):
         part = t[i:i + _SAVE_ROWS]
         f.write(np.ascontiguousarray(part).tobytes() if isinstance(part, np.ndarray)
@@ -168,7 +211,8 @@ def _locked(fn):
 
 
 class FlatStore:
-    """Quantized FLAT store over dense slots on one torch device."""
+    """Quantized FLAT store over dense slots on one torch device, or
+    row-sharded over a :class:`Mesh` passed as ``device``."""
 
     def __init__(
         self,
@@ -193,7 +237,11 @@ class FlatStore:
         self.dim = int(dim)
         self.metric = Metric.parse(metric)
         self.quantization = Quantization.parse(quantization)
-        self.device = torch.device(device)
+        # a mesh of more than one device shards the store
+        self.mesh, self.device, self._where = split(device, single_as_device=True)
+        # capacity quantum: every shard's rows a multiple of 8192
+        self._quantum = _CAPACITY_QUANTUM * (self.mesh.shards if self.mesh else 1)
+        self._cb_reps = None
         self.is_pq = self.quantization == Quantization.PQ
         self.is_bq = self.quantization == Quantization.BQ
         self.pq_cache = bool(pq_cache) and self.is_pq
@@ -236,7 +284,7 @@ class FlatStore:
             )
         self.compute_dtype = compute_dtype
 
-        self._alloc(_CAPACITY_QUANTUM)
+        self._alloc(self._quantum)
 
         self.pk_to_slot: Dict[str, int] = {}
         self.slot_to_pk: Dict[int, str] = {}
@@ -269,43 +317,67 @@ class FlatStore:
     def _ones(self, shape):
         return torch.ones(shape, dtype=torch.float32, device=self.device)
 
+    def _place(self, t: torch.Tensor):
+        """A capacity-sized state tensor as the store holds it: itself, or
+        cut into the mesh's shards."""
+        return t if self.mesh is None else ShardedRows.place(self.mesh, t)
+
+    def _state(self, shape, dtype, fill=0.0):
+        """A new capacity-sized state tensor of ``fill``, made on each
+        shard's device on a mesh."""
+        if self.mesh is None:
+            return torch.full(shape, fill, dtype=dtype, device=self.device)
+        return ShardedRows.build(self.mesh, shape[0], lambda lo, hi, d: torch.full(
+            (hi - lo, *shape[1:]), fill, dtype=dtype, device=d))
+
+    # state tensors and the value of their empty rows
+    _FILLS = (("codes", 0), ("pqcodes", 0), ("rr_codes", 0), ("rr_scale", 1.0),
+              ("scale", 1.0), ("sqnorm", 0), ("valid", False))
+
     def _alloc(self, cap: int) -> None:
         width, dtype = self._scan_shape
-        self.codes = self._zeros((cap, width), dtype)
+        self.codes = self._state((cap, width), dtype)
         self.pqcodes = self.pqcodes_host = None
         if self.pq_host:
             self.pqcodes_host = np.zeros((cap, self.pq_width), np.uint8)
         elif self.pq_cache:
-            self.pqcodes = self._zeros((cap, self.pq_width), torch.uint8)
+            self.pqcodes = self._state((cap, self.pq_width), torch.uint8)
         self.rr_codes = self.rr_scale = None
         if self.bq_rerank:
-            self.rr_codes = self._zeros((cap, self.dim), storage_dtype(self.bq_rr_quant))
-            self.rr_scale = self._ones((cap, 1))
-        self.scale = self._ones((cap, 1))
-        self.sqnorm = self._zeros((cap,), torch.float32)
-        self.valid = self._zeros((cap,), torch.bool)
+            self.rr_codes = self._state((cap, self.dim), storage_dtype(self.bq_rr_quant))
+            self.rr_scale = self._state((cap, 1), torch.float32, 1.0)
+        self.scale = self._state((cap, 1), torch.float32, 1.0)
+        self.sqnorm = self._state((cap,), torch.float32)
+        self.valid = self._state((cap,), torch.bool, False)
         self.capacity = cap
 
     def _grow(self, need: int) -> None:
-        # new tensors (torch.cat), so live search snapshots keep the old ones
-        new_cap = _round_capacity(need)
-        pad = new_cap - self.capacity
-        width, dtype = self._scan_shape
-        self.codes = torch.cat([self.codes, self._zeros((pad, width), dtype)])
+        self._resize(_round_capacity(need, self._quantum))
+
+    def _fit_layout(self) -> None:
+        """After the state tensors were set whole on ``self.device`` at
+        ``capacity`` rows (a load, a bulk build): pad them to a multiple of
+        the store's quantum and cut them into the mesh's shards."""
+        if self.capacity % self._quantum:
+            self._resize(_round_capacity(self.capacity, self._quantum))
+        if self.mesh is not None:
+            for name, _ in self._FILLS:
+                t = getattr(self, name)
+                if torch.is_tensor(t):
+                    setattr(self, name, self._place(t))
+
+    def _resize(self, new_cap: int) -> None:
+        """Every state tensor padded to ``new_cap`` rows (new tensors, so
+        live search snapshots keep the old ones; a mesh's blocks are cut
+        anew, the slots unchanged)."""
+        for name, fill in self._FILLS:
+            t = getattr(self, name)
+            if t is not None:
+                setattr(self, name, grow_rows(t, new_cap, fill))
         if self.pq_host:
-            self.pqcodes_host = np.concatenate(
-                [self.pqcodes_host, np.zeros((pad, self.pq_width), np.uint8)])
-        elif self.pq_cache:
-            self.pqcodes = torch.cat(
-                [self.pqcodes, self._zeros((pad, self.pq_width), torch.uint8)])
-        if self.bq_rerank:
-            self.rr_codes = torch.cat([
-                self.rr_codes,
-                self._zeros((pad, self.dim), storage_dtype(self.bq_rr_quant))])
-            self.rr_scale = torch.cat([self.rr_scale, self._ones((pad, 1))])
-        self.scale = torch.cat([self.scale, self._ones((pad, 1))])
-        self.sqnorm = torch.cat([self.sqnorm, self._zeros((pad,), torch.float32)])
-        self.valid = torch.cat([self.valid, self._zeros((pad,), torch.bool)])
+            self.pqcodes_host = np.concatenate([
+                self.pqcodes_host,
+                np.zeros((new_cap - self.capacity, self.pq_width), np.uint8)])
         self.capacity = new_cap
 
     # -- mutation ----------------------------------------------------------
@@ -376,7 +448,7 @@ class FlatStore:
             raise ValueError(f"expected [N, {self.dim}] vectors, got {tuple(vectors.shape)}")
         if len(pks) != n:
             raise ValueError("pks/vectors length mismatch")
-        cap = max(_round_capacity(n), self.capacity)
+        cap = max(_round_capacity(n, self._quantum), self.capacity)
         pad = cap - n
 
         def padded(t, value=0.0):
@@ -412,6 +484,7 @@ class FlatStore:
             self.sqnorm = padded((deq * deq).sum(dim=1))
         self.valid = torch.arange(cap, device=self.device) < n
         self.capacity = cap
+        self._fit_layout()
         self._next_slot = n
         self.pk_to_slot = dict(zip(pks, range(n)))
         self.slot_to_pk = dict(enumerate(pks))
@@ -495,11 +568,8 @@ class FlatStore:
         updates += [("codes", u_codes), ("scale", u_scale), ("sqnorm", u_sqnorm),
                     ("valid", alive)]
         for name, src in updates:
-            dst = getattr(self, name)
-            if self._readers == 0:
-                dst.index_put_((slots,), src)
-            else:
-                setattr(self, name, dst.index_put((slots,), src))
+            setattr(self, name, scatter_rows(getattr(self, name), slots_np, slots,
+                                             src, inplace=self._readers == 0))
 
     # -- queries -----------------------------------------------------------
     def __len__(self) -> int:
@@ -529,15 +599,15 @@ class FlatStore:
         if self.is_pq:
             if self.codebook is None:
                 return None
-            row = torch.as_tensor(self._pq_code_array()[slot:slot + 1]).to(self.device)
-            return pq_reconstruct(row, self.codebook, derotate=True)[0].cpu().numpy()
+            row = torch.as_tensor(state_row(self._pq_code_array(), slot)).to(self.device)
+            return pq_reconstruct(row[None], self.codebook, derotate=True)[0].cpu().numpy()
         if self.is_bq:
             if self.bq_rerank:
-                row = self.rr_codes[slot].to(torch.float32).cpu().numpy()
-                return row * float(self.rr_scale[slot, 0])
-            return bq_decode(self.codes[slot:slot + 1], self.dim)[0].cpu().numpy()
-        row = self.codes[slot].to(torch.float32).cpu().numpy()
-        return row * float(self.scale[slot, 0])
+                row = state_row(self.rr_codes, slot).to(torch.float32).cpu().numpy()
+                return row * float(state_row(self.rr_scale, slot)[0])
+            return bq_decode(state_row(self.codes, slot)[None], self.dim)[0].cpu().numpy()
+        row = state_row(self.codes, slot).to(torch.float32).cpu().numpy()
+        return row * float(state_row(self.scale, slot)[0])
 
     def search(
         self,
@@ -600,90 +670,77 @@ class FlatStore:
             candidates = np.asarray(candidates, np.int64).reshape(-1)
             if candidates.size == 0:
                 return self._empty(queries.shape[0], k)
-            cand = torch.from_numpy(candidates).to(self.device)
-            if candidates.size < max(k, self.capacity // _GATHER_FRACTION):
+            # a sharded store always masks the scan: gathering would pull
+            # the candidate rows across shards
+            if self.mesh is None and candidates.size < max(
+                    k, self.capacity // _GATHER_FRACTION):
+                cand = torch.from_numpy(candidates).to(self.device)
                 return self._search_gathered(tq, cand, k, metric, oversample)
-            mask = torch.zeros(self.capacity, dtype=torch.bool, device=self.device)
-            mask[cand] = True
-            valid = valid & mask
+            mask = torch.zeros(self.capacity, dtype=torch.bool)
+            mask[torch.from_numpy(candidates)] = True
+            valid = (valid & mask.to(self.device) if self.mesh is None else
+                     valid.map(lambda t, lo, hi: t & mask[lo:hi].to(t.device)))
 
         if self.is_bq:
             if metric != Metric.COSINE:
                 raise ValueError("BQ collections are cosine-only")
             return self._search_bq(tq, valid, k, oversample)
         kk = min(k, self.capacity)
+        where = self._where
+        centroids, rotation, coarse = self._codebook_arrays()
         if self.is_pq and not self.pq_cache:
             if self.codebook is None:  # nothing ever synced
                 return self._empty(queries.shape[0], k)
-            scores, slots = pq_scan_topk(
-                tq, self.codes, self.codebook, self.sqnorm, valid, k=kk,
+            scores, slots = sharded_pq_topk(
+                where, self.codes, centroids, self.sqnorm, valid, tq, k=kk,
                 metric=metric, compute_dtype=self.compute_dtype,
-            )
-        elif self.pq_cache and self.codebook is not None and oversample > 1:
-            scores, slots = self._search_pq_rerank(tq, valid, k, metric, fused,
-                                                   oversample)
-        elif fused and fused_supports(self.capacity, self.dim, metric,
-                                      self.codes.dtype):
-            scores, slots = fused_scan_topk(
-                tq, self.codes, self.scale, self.sqnorm, valid, k=kk,
-                metric=metric, compute_dtype=self.compute_dtype,
+                rotation=rotation, coarse=coarse,
             )
         else:
-            scores, slots = scan_topk(
-                tq, self.codes, self.scale, self.sqnorm, valid, k=kk,
-                metric=metric, compute_dtype=self.compute_dtype,
+            # the PQ cache's shortlist of k * oversample rows is reranked
+            # against the exact reconstruction (a host code table's rows
+            # gathered on the host); ``tq`` is already rotated
+            pq_rr = None
+            if self.pq_cache and self.codebook is not None and oversample > 1:
+                pq_rr = (self.pqcodes_host if self.pq_host else self.pqcodes,
+                         centroids, coarse)
+            scores, slots = sharded_scan_topk(
+                where, self.codes, self.scale, self.sqnorm, valid, tq, k=kk,
+                metric=metric, compute_dtype=self.compute_dtype, fused=fused,
+                oversample=oversample, pq_rerank=pq_rr,
             )
         return self._trim(*fetch_scores_ids(scores, slots), k)
 
-    def _search_pq_rerank(self, tq, valid, k, metric, fused, oversample):
-        """f8-cache shortlist of ``k * oversample`` rows (K1 when ``fused``
-        and the cache's shape supports it, else the plain scan), then the
-        rerank against the exact reconstruction: the index's
-        ``sharded_scan_topk(pq_rerank=...)``. Host-resident codes gather
-        the shortlist's code rows on the host instead. ``tq`` is rotated."""
-        kk = min(k, self.capacity)
+    def _codebook_arrays(self):
+        """``(centroids, rotation, coarse)`` of the codebook as the scans
+        take them: tensors, or on a mesh ``{device: tensor}`` replicas made
+        once per codebook. Nones without a codebook."""
         cb = self.codebook
-        kw = dict(metric=metric, compute_dtype=self.compute_dtype, fused=fused)
-        if not self.pq_host:
-            return sharded_scan_topk(
-                self.device, self.codes, self.scale, self.sqnorm, valid, tq, k=kk,
-                oversample=oversample, pq_rerank=(self.pqcodes, cb.centroids, cb.coarse),
-                **kw)
-        negd, slots = shortlist_scan(tq, self.codes, self.scale, self.sqnorm, valid,
-                                     k=min(k * oversample, self.capacity), **kw)
-        # gather the shortlist's code rows on the host and upload them
-        ih = slots.cpu().numpy()
-        crow = torch.from_numpy(
-            self.pqcodes_host[np.where(ih >= 0, ih, 0).reshape(-1)]).to(self.device)
-        negd, slots = pq_rescore_rows(tq, negd, slots, crow, cb.centroids, k=kk,
-                                      metric=metric, coarse=cb.coarse)
-        return scores_from_negd(negd, metric), slots
+        if cb is None:
+            return None, None, None
+        if self.mesh is None:
+            return cb.centroids, cb.rotation, cb.coarse
+        if self._cb_reps is None or self._cb_reps[0] is not cb:
+            self._cb_reps = (cb, tuple(replicate(self.mesh, t)
+                                       for t in (cb.centroids, cb.rotation, cb.coarse)))
+        return self._cb_reps[1]
 
-    def _bq_shortlist(self, k: int, oversample: int, rows: int) -> int:
-        ovs = oversample if oversample > 1 else (
+    def _bq_oversample(self, oversample: int) -> int:
+        """``oversample``, or the store's ``bq_oversample`` at 1 when it
+        reranks."""
+        return oversample if oversample > 1 else (
             self.bq_oversample if self.bq_rerank else 1)
-        return min(k * max(ovs, 1), rows)
 
     def _search_bq(self, tq, valid, k: int, oversample: int):
         """Hamming shortlist over the packed bits, then (by default) the
         rerank of the shortlist. ``oversample=1`` uses ``bq_oversample``;
         a store without a rerank copy serves the Hamming values and keeps
-        the exact per-block selection."""
-        negh, slots = bq_scan_neg_topk(
-            bq_encode(tq), self.codes, valid,
-            k=self._bq_shortlist(k, oversample, self.capacity),
-            exact=not self.bq_rerank)
-        return self._finish_bq(tq, negh, slots, k)
-
-    def _finish_bq(self, tq, negh, slots, k: int):
-        kk = min(k, negh.shape[1])
-        if self.bq_rerank:
-            negd, slots = rerank_neg_topk(
-                tq, negh, slots, self.rr_codes, k=kk, metric=Metric.COSINE,
-                compute_dtype=self.compute_dtype, rr_scale=self.rr_scale)
-        else:
-            negd, slots = hamming_to_neg_cos_dist(negh[:, :kk], self.dim), slots[:, :kk]
-        scores = scores_from_negd(negd, Metric.COSINE)
+        the exact per-block selection. On a mesh each shard shortlists and
+        reranks its rows before the merge."""
+        scores, slots = sharded_bq_topk(
+            self._where, self.codes, valid, self.rr_codes, tq,
+            k=min(k, self.capacity), oversample=self._bq_oversample(oversample),
+            dim=self.dim, rr_scale=self.rr_scale, compute_dtype=self.compute_dtype)
         return self._trim(*fetch_scores_ids(scores, slots), k)
 
     def _search_gathered(self, tq, cand, k, metric, oversample=1):
@@ -692,10 +749,13 @@ class FlatStore:
         if self.is_bq:
             if metric != Metric.COSINE:
                 raise ValueError("BQ collections are cosine-only")
-            negh, local = bq_scan_neg_topk(
-                bq_encode(tq), self.codes[cand], self.valid[cand],
-                k=self._bq_shortlist(k, oversample, n))
-            return self._finish_bq(tq, negh, cand[local.long()], k)
+            negd, slots = bq_shortlist_topk(
+                tq, bq_encode(tq), self.codes[cand], self.valid[cand],
+                self.rr_codes, self.rr_scale, k=min(k, n),
+                oversample=self._bq_oversample(oversample), dim=self.dim,
+                compute_dtype=self.compute_dtype, rows=cand)
+            scores = scores_from_negd(negd, Metric.COSINE)
+            return self._trim(*fetch_scores_ids(scores, slots), k)
         if self.is_pq and not self.pq_cache:
             if self.codebook is None:
                 return self._empty(tq.shape[0], k)
@@ -848,6 +908,7 @@ class FlatStore:
                 f.read(cap * d * rdt.itemsize), rdt, (cap, d)).to(store.device)
             store.rr_scale = tensor_from_bytes(
                 f.read(cap * 4), torch.float32, (cap, 1)).to(store.device)
+        store._fit_layout()
         store._next_slot = header["next_slot"]
         store._free = list(header["free"])
         store.pk_to_slot = {pk: slot for pk, slot in header["pks"]}
@@ -895,6 +956,7 @@ class FlatStore:
             store.scale = store._ones((n, 1))
             store.sqnorm = pq_sqnorm(pqcodes, store.codebook)
         store.valid = torch.ones(n, dtype=torch.bool, device=store.device)
+        store._fit_layout()
         store.pk_to_slot = {str(i): i for i in range(n)}
         store.slot_to_pk = {i: str(i) for i in range(n)}
         store._next_slot = n

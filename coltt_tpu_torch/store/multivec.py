@@ -24,8 +24,15 @@ blocked over rows by free device memory (the reference builds the whole
 ``[Q, N]`` matrix of every field). The products stay library calls: the
 reference computes them in XLA, outside any Pallas kernel, and K1 keeps
 one row per 32-row bin of one field, while the weighted sum needs every
-field's score of a row first. Several devices (the reference's ``mesh``)
-are ROADMAP Queue 1 item 7.
+field's score of a row first.
+
+Over a :class:`~coltt_tpu_torch.parallel.mesh.Mesh` (``device=mesh``, the
+reference's ``mesh``) every field's rows and ``valid`` are
+:class:`~coltt_tpu_torch.parallel.mesh.ShardedRows` over one slot axis,
+capacity a multiple of ``shards x 8192``; ``sync`` routes rows to their
+shard (out of place per touched shard while a search holds the store),
+growth re-cuts the blocks, and a search is ``sharded_cflat_topk``'s
+shard-local weighted scan and merge.
 """
 
 from __future__ import annotations
@@ -43,10 +50,13 @@ from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.quant import Quantization, dequantize, quantize, storage_dtype
 from coltt_tpu_torch.ops.topk import fetch_scores_ids
 from coltt_tpu_torch.parallel.dist_search import sharded_cflat_topk
+from coltt_tpu_torch.parallel.mesh import ShardedRows, split
 from coltt_tpu_torch.store.flat import (
     _CAPACITY_QUANTUM,
     _locked,
     _round_capacity,
+    grow_rows,
+    scatter_rows,
     tensor_from_bytes,
     write_rows,
 )
@@ -56,7 +66,7 @@ _SNAPSHOT_MAGIC = b"CTTMVEC1"
 
 class MultiVectorStore:
     """Multi-field vector store keyed by string primary key, on one torch
-    device."""
+    device or row-sharded over a mesh passed as ``device``."""
 
     def __init__(
         self,
@@ -72,20 +82,21 @@ class MultiVectorStore:
         self.fields = dict(fields)
         self.metric = Metric.parse(metric)
         self.quantization = Quantization.parse(quantization)
-        self.device = torch.device(device)
+        self.mesh, self.device, self._where = split(device, single_as_device=True)
+        self._quantum = _CAPACITY_QUANTUM * (self.mesh.shards if self.mesh else 1)
         self._qdtype = storage_dtype(self.quantization)
         self.compute_dtype = (
             torch.float32 if self.quantization == Quantization.NONE else torch.bfloat16
         )
-        self.capacity = _round_capacity(base_capacity)
+        self.capacity = _round_capacity(base_capacity, self._quantum)
         self.codes: Dict[str, torch.Tensor] = {}
         self.scale: Dict[str, torch.Tensor] = {}
         self.sqnorm: Dict[str, torch.Tensor] = {}
         for name, dim in self.fields.items():
-            self.codes[name] = self._zeros((self.capacity, dim), self._qdtype)
-            self.scale[name] = self._ones((self.capacity, 1))
-            self.sqnorm[name] = self._zeros((self.capacity,), torch.float32)
-        self.valid = self._zeros((self.capacity,), torch.bool)
+            self.codes[name] = self._state((self.capacity, dim), self._qdtype)
+            self.scale[name] = self._state((self.capacity, 1), torch.float32, 1.0)
+            self.sqnorm[name] = self._state((self.capacity,), torch.float32)
+        self.valid = self._state((self.capacity,), torch.bool, False)
 
         self.pk_to_slot: Dict[str, int] = {}
         self.slot_to_pk: Dict[int, str] = {}
@@ -97,25 +108,39 @@ class MultiVectorStore:
         # live unlocked-search snapshots (see search / sync)
         self._readers = 0
 
-    def _zeros(self, shape, dtype):
-        return torch.zeros(shape, dtype=dtype, device=self.device)
-
-    def _ones(self, shape):
-        return torch.ones(shape, dtype=torch.float32, device=self.device)
+    def _state(self, shape, dtype, fill=0.0):
+        """A new capacity-sized state tensor of ``fill``, made on each
+        shard's device on a mesh."""
+        if self.mesh is None:
+            return torch.full(shape, fill, dtype=dtype, device=self.device)
+        return ShardedRows.build(self.mesh, shape[0], lambda lo, hi, d: torch.full(
+            (hi - lo, *shape[1:]), fill, dtype=dtype, device=d))
 
     # -- mutation ----------------------------------------------------------
     def _grow(self, need: int) -> None:
-        # new tensors (torch.cat), so live search snapshots keep the old ones
-        new_cap = _round_capacity(need)
-        pad = new_cap - self.capacity
-        for name, dim in self.fields.items():
-            self.codes[name] = torch.cat(
-                [self.codes[name], self._zeros((pad, dim), self._qdtype)])
-            self.scale[name] = torch.cat([self.scale[name], self._ones((pad, 1))])
-            self.sqnorm[name] = torch.cat(
-                [self.sqnorm[name], self._zeros((pad,), torch.float32)])
-        self.valid = torch.cat([self.valid, self._zeros((pad,), torch.bool)])
+        self._resize(_round_capacity(need, self._quantum))
+
+    def _resize(self, new_cap: int) -> None:
+        # new tensors, so live search snapshots keep the old ones
+        for name in self.fields:
+            self.codes[name] = grow_rows(self.codes[name], new_cap)
+            self.scale[name] = grow_rows(self.scale[name], new_cap, 1.0)
+            self.sqnorm[name] = grow_rows(self.sqnorm[name], new_cap)
+        self.valid = grow_rows(self.valid, new_cap, False)
         self.capacity = new_cap
+
+    def _fit_layout(self) -> None:
+        """After the state was set whole on ``self.device`` at ``capacity``
+        rows (a load): pad it to the quantum and cut it into the mesh's
+        shards."""
+        if self.capacity % self._quantum:
+            self._resize(_round_capacity(self.capacity, self._quantum))
+        if self.mesh is not None:
+            place = lambda t: ShardedRows.place(self.mesh, t)  # noqa: E731
+            for table in (self.codes, self.scale, self.sqnorm):
+                for name in self.fields:
+                    table[name] = place(table[name])
+            self.valid = place(self.valid)
 
     @_locked
     def upsert(self, pk: str, vectors: Dict[str, np.ndarray]) -> int:
@@ -168,8 +193,8 @@ class MultiVectorStore:
             return
         items = sorted(self._pending.items())
         self._pending = {}
-        slots = torch.tensor([s for s, _ in items], dtype=torch.int64,
-                             device=self.device)
+        slots_np = np.array([s for s, _ in items], np.int64)
+        slots = torch.from_numpy(slots_np).to(self.device)
         alive = torch.tensor([v is not None for _, v in items], dtype=torch.bool,
                              device=self.device)
         for name, dim in self.fields.items():
@@ -180,13 +205,10 @@ class MultiVectorStore:
             deq = dequantize(u_codes, u_scale)
             for table, src in ((self.codes, u_codes), (self.scale, u_scale),
                                (self.sqnorm, (deq * deq).sum(dim=1))):
-                table[name] = self._scatter(table[name], slots, src)
-        self.valid = self._scatter(self.valid, slots, alive)
-
-    def _scatter(self, dst: torch.Tensor, slots, src) -> torch.Tensor:
-        if self._readers == 0:
-            return dst.index_put_((slots,), src)
-        return dst.index_put((slots,), src)
+                table[name] = scatter_rows(table[name], slots_np, slots, src,
+                                           inplace=self._readers == 0)
+        self.valid = scatter_rows(self.valid, slots_np, slots, alive,
+                                  inplace=self._readers == 0)
 
     # -- search ------------------------------------------------------------
     def __len__(self) -> int:
@@ -284,7 +306,7 @@ class MultiVectorStore:
                             for n in names)
         kk = min(max(1, int(k)), self.capacity)
         return sharded_cflat_topk(
-            self.device, field_state, self.valid, queries, ratios, k=kk,
+            self._where, field_state, self.valid, queries, ratios, k=kk,
             metric=self.metric, compute_dtype=self.compute_dtype)
 
     # -- persistence -------------------------------------------------------
@@ -325,7 +347,7 @@ class MultiVectorStore:
             header["fields"],
             metric=Metric.parse(header["metric"]),
             quantization=Quantization.parse(header["quantization"]),
-            base_capacity=header["capacity"],
+            base_capacity=_CAPACITY_QUANTUM,  # the state is read below
             device=device,
         )
         cap = header["capacity"]
@@ -340,6 +362,7 @@ class MultiVectorStore:
                 f.read(cap * 4), torch.float32, (cap,)).to(store.device)
         store.valid = tensor_from_bytes(f.read(cap), torch.bool, (cap,)).to(store.device)
         store.capacity = cap
+        store._fit_layout()
         store._next_slot = header["next_slot"]
         store._free = list(header["free"])
         store.pk_to_slot = {pk: slot for pk, slot in header["pks"]}

@@ -41,9 +41,14 @@ class StorageConfig:
     # over the interval when both are set)
     kv_auto_merge_interval_s: float = 0.0
     kv_auto_merge_cron: str = ""
-    # edge / experimental checkpoint backend: only "local" (filesystem) is ported; the JAX
-    # package's "s3" client is not yet
+    # edge / experimental checkpoint backend: "local" (filesystem) or "s3"
+    # (the network MinIO / S3 client, pkg/minio parity — storage/s3.py)
     object_store: str = "local"
+    s3_endpoint: str = "localhost:9000"   # reference dial target (edge.go:36)
+    s3_access_key: str = "minioadmin"     # reference creds default
+    s3_secret_key: str = "minioadmin"
+    s3_region: str = "us-east-1"
+    s3_secure: bool = False
 
 
 @dataclass
@@ -57,7 +62,11 @@ class ServingConfig:
     scan_batch_wait_ms: float = 2.0
     # OPQ rounds for PQ collections (0 disables; ops/pq.py PQCodebook doc)
     pq_opq_iters: int = 4
-    # devices to shard each collection over; only 1 is ported yet
+    # multi-device serving: shard every edge / experimental collection's
+    # rows over this many devices and scan through the shard-local scans
+    # and merge (parallel/dist_search.py). 1 = single-device (default); 0 =
+    # every visible CUDA device; more than are visible raises. With device
+    # = "cpu" the shards share the host (a test deployment).
     shards: int = 1
     # comma-separated query-batch sizes searched at LoadCollection (plain
     # and high_resource, k=10), so the first RPCs find the kernels loaded

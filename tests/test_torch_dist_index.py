@@ -257,23 +257,31 @@ def test_unit_i8_requires_cosine_and_rerank(rng):
 
 
 def test_unported_paths_name_the_roadmap(rng):
+    """The paths that were still to port (several devices) now serve: the
+    flat and PQ indexes and CFLAT over a two-shard CPU mesh give the
+    one-device results (tests/test_torch_parallel.py holds them against
+    the reference)."""
+    from coltt_tpu_torch.parallel.mesh import make_mesh as tmesh
+
     vecs = rng.standard_normal((64, 128)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        tds.DistributedFlatIndex(["cpu", "cpu"], vecs)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        tds.DistributedPQIndex(["cpu", "cpu"], vecs)
-    # CFLAT on one device is ported (tests/test_torch_multivec.py)
+    mesh = tmesh(2, devices=["cpu", "cpu"])
+    one, two = (tds.DistributedFlatIndex(d, vecs) for d in ("cpu", mesh))
+    assert two.codes.shape[0] == 2 * 4096 and two.codes.local_n == 4096
+    for got, want in zip(two.search(vecs[:5], 4), one.search(vecs[:5], 4)):
+        np.testing.assert_array_equal(got, want)
+    pq_one = tds.DistributedPQIndex("cpu", vecs, m=16, train_sample=64)
+    pq_two = tds.DistributedPQIndex(mesh, vecs, codebook=pq_one.codebook)
+    for got, want in zip(pq_two.search(vecs[:5], 4), pq_one.search(vecs[:5], 4)):
+        np.testing.assert_array_equal(got, want)
     codes = torch.from_numpy(vecs)
     sqn = (codes * codes).sum(dim=1)
     valid = torch.ones(64, dtype=torch.bool)
     state = ((codes, None, sqn), (codes, None, sqn))
-    scores, ids = tds.sharded_cflat_topk("cpu", state, valid, (codes[:3], codes[:3]),
-                                         (0.5, 0.5), k=4, compute_dtype=torch.float32)
-    assert ids[:, 0].tolist() == [0, 1, 2]
-    np.testing.assert_allclose(scores[:, 0].numpy(), 100.0, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 7"):
-        tds.sharded_cflat_topk(["cpu", "cpu"], state, valid, (codes, codes),
-                               (0.5, 0.5), k=4)
+    for where in ("cpu", mesh):
+        scores, ids = tds.sharded_cflat_topk(where, state, valid, (codes[:3], codes[:3]),
+                                             (0.5, 0.5), k=4, compute_dtype=torch.float32)
+        assert ids[:, 0].tolist() == [0, 1, 2]
+        np.testing.assert_allclose(scores[:, 0].numpy(), 100.0, rtol=1e-6)
     with pytest.raises(ValueError, match="cosine-only"):
         tds.DistributedFlatIndex("cpu", vecs, metric=Metric.EUCLIDEAN,
                                  quantization=Quantization.BQ)

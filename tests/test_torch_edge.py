@@ -313,22 +313,44 @@ def test_pq_collection_flow_both_engines(tmp_path):
 
 def test_unported_modes_raise(tmp_path):
     """Every mode serves (core: tests/test_torch_core_api.py; experimental:
-    tests/test_torch_experimental.py); what is still to port, the S3
-    object store and several devices, raises, as does an unknown mode."""
+    tests/test_torch_experimental.py), and so do what was last to port:
+    the S3 object store and several devices, which build and serve on the
+    CPU. An unknown mode raises, as do more CUDA shards than cards."""
+    from fake_s3 import start_fake_s3
+
     cfg = Config()
     cfg.storage.data_dir = str(tmp_path / "data")
+    cfg.storage.object_store_root = str(tmp_path / "objects")
     cfg.serving.device = "cpu"
     servicer = build_servicer("root", cfg)
     servicer.engine.close()
-    cfg.storage.object_store = "s3"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_servicer("edge", cfg)
+    srv, addr = start_fake_s3()
+    try:
+        cfg.storage.object_store = "s3"
+        cfg.storage.s3_endpoint = addr
+        cfg.serving.shards = 2
+        for mode in ("edge", "experimental"):
+            engine = build_servicer(mode, cfg).engine
+            assert type(engine.objects).__name__ == "S3ObjectStore"
+            assert engine.mesh.shape["shard"] == 2
+        rows = np.random.default_rng(5).standard_normal((40, 16)).astype(np.float32)
+        engine = build_servicer("edge", cfg).engine
+        engine.create_collection(_schema_of("s3col", 16, Quantization.F16, "tag"))
+        engine.index_many("s3col", [{"pk": f"p{i}", "tag": "a"} for i in range(40)], rows)
+        assert engine.search("s3col", rows[7], limit=1)[0].id == "p7"
+        engine.flush("s3col")
+        again = build_servicer("edge", cfg).engine
+        again.load_collection("s3col")
+        assert again.search("s3col", rows[9], limit=1)[0].id == "p9"
+    finally:
+        srv.shutdown()
     cfg.storage.object_store = "local"
-    cfg.serving.shards = 2
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_servicer("experimental", cfg)
     with pytest.raises(ValueError, match="unknown mode"):
         build_servicer("nope", cfg)
+    cfg.serving.device = "cuda"
+    cfg.serving.shards = torch.cuda.device_count() + 2
+    with pytest.raises(ValueError, match="exceeds available CUDA devices"):
+        build_servicer("edge", cfg)
 
 
 def test_main_serves_edge_mode(tmp_path):

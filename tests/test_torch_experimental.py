@@ -376,7 +376,7 @@ def test_build_servicer_modes():
     assert build_servicer("experimental", cfg).SERVICE.endswith(
         "ExperimentalMultiVectorService")
     cfg.serving.shards = 2
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_servicer("experimental", cfg)
+    engine = build_servicer("experimental", cfg).engine
+    assert engine.mesh.shape["shard"] == 2
     with pytest.raises(ValueError, match="unknown mode"):
         build_servicer("nope", Config())

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from coltt_tpu_torch.store.hnsw import HnswIndex
-from tests.torch_hnsw_cases import CASES, check_builder, make_data
+from torch_hnsw_cases import CASES, check_builder, make_data  # pytest puts tests/ on the path
 
 
 @pytest.fixture(scope="module")

@@ -9,7 +9,9 @@ import torch
 
 from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.store.hnsw import HnswConfig, HnswIndex
-from tests.torch_hnsw_cases import CASES, DIM, HEUR, N, build, check_builder, make_data
+from torch_hnsw_cases import (  # pytest puts tests/ on the path
+    CASES, DIM, HEUR, N, build, check_builder, make_data,
+)
 
 
 @pytest.fixture(scope="module")

@@ -21,6 +21,12 @@ CORE_MODULES = (
     "coltt_tpu_torch.store.hnsw", "coltt_tpu_torch.engine.core",
     "coltt_tpu_torch.bench_hnsw",
 )
+# the multi-device and S3 modules
+PARALLEL_MODULES = (
+    "coltt_tpu_torch.parallel.mesh", "coltt_tpu_torch.parallel.multihost",
+    "coltt_tpu_torch.parallel.dist_search", "coltt_tpu_torch.parallel.convert",
+    "coltt_tpu_torch.storage.s3", "coltt_tpu_torch.bench_scaling",
+)
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -51,6 +57,7 @@ def test_port_modules_never_load_jax():
     assert count >= 30, proc.stdout  # every module was walked
     walked = set(proc.stdout.splitlines()[1].split())
     assert set(CORE_MODULES) <= walked, set(CORE_MODULES) - walked
+    assert set(PARALLEL_MODULES) <= walked, set(PARALLEL_MODULES) - walked
 
 
 def test_chip_smoke_imports_no_jax():

@@ -329,10 +329,16 @@ def test_sharded_cflat_topk_matches_reference(metric):
     assert tv.shape == ti.shape == (8, K) and ti.dtype == torch.int32
     assert_same_search((np.asarray(jv), np.asarray(ji)),
                        (tv.numpy(), ti.numpy()), tol=TOL)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tds.sharded_cflat_topk(["cpu", "cpu"], _field_state(ts), ts.valid,
-                               tuple(torch.from_numpy(q[f]) for f in FIELDS),
-                               (0.6, 0.4), k=K)
+    # several devices: the same state over a two-shard CPU mesh gives
+    # the one-device result (the shard-major merge keeps the tie order)
+    from coltt_tpu_torch.parallel.mesh import make_mesh as tmesh
+
+    sv, si = tds.sharded_cflat_topk(
+        tmesh(2, devices=["cpu", "cpu"]), _field_state(ts), ts.valid,
+        tuple(torch.from_numpy(q[f]) for f in FIELDS), (0.6, 0.4), k=K,
+        metric=metric, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(sv, tv, rtol=0, atol=0)
+    assert torch.equal(si, ti)
 
 
 @pytest.mark.parametrize("quant", ["BF16", "F8", "I8"])
