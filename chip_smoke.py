@@ -7,9 +7,10 @@ Builds the port's CUDA kernels from ``coltt_tpu_torch/csrc``, checks each
 against its plain PyTorch version on the card, then drives every ported
 path: the edge server over gRPC and the flagship flat index of ``python
 -m coltt_tpu_torch.bench`` on the same 1M x 768d rows (phases 3-4), the
-same rows sharded over four shards of the card (9, run right after 4),
-BQ and PQ (5-6), CFLAT, the experimental mode (7), and core mode, the
-HNSW store and the root server (8a, 8b).
+selection frontier of that index (4b), the same rows sharded over four
+shards of the card (9, run right after 4b), BQ and PQ (5-6), CFLAT, the
+experimental mode (7), core mode, the HNSW store and the root server (8a,
+8b), and the quickstart (10).
 
 Phases (each exits non-zero on failure):
 
@@ -64,6 +65,21 @@ Phases (each exits non-zero on failure):
    bench's JSON line for each, and one queued round of the F8 index runs
    under ``torch.profiler`` (device busy and idle share, device ms by
    kernel).
+4b. the selection frontier (``python -m coltt_tpu_torch.bench_frontier``'s
+   measurement) on phase 4's I8 + bf16 index, queries and ground truth:
+   for each of ``exact``, ``approx``, ``approx2``, ``slot2``, ``slot2t``,
+   ``slot2c`` and ``slot2a`` (the port runs two paths, the exact top-k
+   and slot2; the others are aliases, as ``ops/fused_scan.py`` says),
+   queued QPS (depth 8 x 2048 queries, median of 3 rounds after 1 warm),
+   p50, recall@10, the share of ids equal to ``exact``'s and the
+   selection's CUDA-event wall ms (on one K1 call's keys, made by the
+   search's own scan step, median of 20), beside the card's name and
+   power limit. Every recall@10 must be >= 0.95; ``slot2t`` / ``slot2c``
+   / ``slot2a`` must return ``slot2``'s ids; ``approx`` and ``approx2``
+   must select ``exact``'s key values at every rank, and return
+   ``exact``'s ids on every query whose selected bins are ``exact``'s
+   (elsewhere the bins differ by a tie of equal keys, whose order
+   ``torch.topk`` does not fix). K1 must launch there, K2 not.
 
 5. BQ at 1,048,576 x 768 (the corpus recipe of ``bench_bq.py``: 16,384
    centres, sigma 0.35, made on the card): the Hamming shortlist of the
@@ -137,7 +153,7 @@ Phases (each exits non-zero on failure):
    CompareDist of a vector with itself gives 100; Release + Load return
    the same ids. K1's and K2's counts must read 0 after the phase.
 
-9. the sharded paths, run right after phase 4 on its rows (the flagship
+9. the sharded paths, run right after phase 4b on phase 4's rows (the flagship
    collection as a multi-GPU deployment cuts it, on one card: four
    shards, every one on ``cuda:0``). 9a: the I8 + bf16 and unit-i8
    indexes over the 4-shard mesh and the I8 index over a 1-shard mesh.
@@ -164,6 +180,8 @@ Phases (each exits non-zero on failure):
    --shard-worker``): each must return 9a's 4-shard K1 result. The one-
    device references are searched before the counts are set to 0; 9a
    and 9b count as ``sharded``; both kernels must launch there.
+10. the quickstart (``python -m coltt_tpu_torch.quickstart``) on the
+   card: the edge, core and experimental engines end to end, in seconds.
 
 Each path's launch counts are set to 0 just before it is driven and
 read just after.
@@ -947,7 +965,88 @@ def phase_flat_index(data, recall_server, device="cuda"):
     by_loop = dict(fs.binmax_scan.launches_by)
     log(f"[index] launches during the flat-index run: {launches}, K1 by code "
         f"dtype and loop {by_loop}")
-    return {"launches": launches, "k1_by_loop": by_loop, "recalls": recalls}
+    # the I8 + bf16 index stays for the frontier (phase 4b)
+    return {"launches": launches, "k1_by_loop": by_loop, "recalls": recalls,
+            "i8": i8}
+
+
+# -- phase 4b ------------------------------------------------------------------
+
+def phase_frontier(data, i8=None, device="cuda"):
+    """The selection frontier (``python -m coltt_tpu_torch.bench_frontier``)
+    on phase 4's rows, queries and ground truth, through phase 4's I8 +
+    bf16 index (built again only when it is not passed)."""
+    import torch
+    from coltt_tpu_torch import bench
+    from coltt_tpu_torch import bench_frontier as bf
+    from coltt_tpu_torch.ops import fused_scan as fs
+
+    x, queries, truth = data
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    if i8 is None:
+        i8 = bench.build_index(torch.from_numpy(x).to(dev), dev, unit_i8=False)
+    rng = np.random.default_rng(SEED + 3)
+    q_batches = [torch.from_numpy(rng.standard_normal((QUERIES, DIM), dtype=np.float32))
+                 .to(dev) for _ in range(bf.DEPTH)]
+    card = bench.smi_line() if dev.type == "cuda" else dev.type
+    fs.reset_launch_counts()  # this path's counts
+    records, detail = bf.frontier(i8, q_batches, queries, truth, warm=1, rounds=3)
+    launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
+    by_loop = dict(fs.binmax_scan.launches_by)
+    for final, rec in records.items():
+        log(f"[frontier] {final}: QPS {rec['qps']:.0f} (depth {bf.DEPTH} x "
+            f"{QUERIES}, rounds {[round(r) for r in rec['qps_rounds']]}), p50 "
+            f"{rec['p50_batch_latency_ms']:.3f} ms, recall@{K} "
+            f"{rec['recall_at_10']:.4f}, ids equal to exact's "
+            f"{rec['ids_equal_to_exact']:.4f}, selection (CUDA-event wall) "
+            f"{rec['selection_ms']:.3f} ms, K1 a search "
+            f"{rec['k1_launches_per_search']} ({card})")
+        check(rec["recall_at_10"] >= 0.95,
+              f"frontier {final}: recall {rec['recall_at_10']} below 0.95")
+    exact = detail["exact"]
+    for final in ("slot2t", "slot2c", "slot2a"):
+        check(np.array_equal(detail[final]["ids"], detail["slot2"]["ids"]),
+              f"frontier: {final}'s ids differ from slot2's")
+    tied = {}
+    for final in ("approx", "approx2"):
+        got = detail[final]
+        # the same key values at every rank; where the selected bins differ,
+        # the keys tied (torch.topk's order among equal keys is not fixed)
+        check(np.array_equal(got["sel"], exact["sel"]),
+              f"frontier: {final} selects other keys than exact")
+        same_bins = np.array([set(a) == set(b)
+                              for a, b in zip(got["pos"], exact["pos"])])
+        tied[final] = int((~same_bins).sum())
+        check(np.array_equal(got["ids"][same_bins], exact["ids"][same_bins]),
+              f"frontier: {final}'s ids differ from exact's on the same bins")
+    check(launches["K1"] > 0 and launches["K2"] == 0,
+          f"frontier launches {launches}")
+    seconds = time.perf_counter() - t0
+    log(f"[frontier] slot2t / slot2c / slot2a return slot2's ids; approx and "
+        f"approx2 select exact's keys (queries whose bins differ by a tie: "
+        f"{tied}); launches {launches}, K1 by code dtype and loop {by_loop}; "
+        f"phase {seconds:.1f} s")
+    return {"launches": launches, "k1_by_loop": by_loop, "finals": records,
+            "tied_queries": tied, "seconds": seconds}
+
+
+# -- phase 10 ------------------------------------------------------------------
+
+def phase_quickstart(tmp, device="cuda"):
+    """The port's quickstart (``python -m coltt_tpu_torch.quickstart``):
+    the three engines end to end on ``device``."""
+    from coltt_tpu_torch import quickstart
+    from coltt_tpu_torch.ops import fused_scan as fs
+
+    fs.reset_launch_counts()
+    t0 = time.perf_counter()
+    check(quickstart.main([tmp, "--device", device]) == 0, "quickstart failed")
+    seconds = time.perf_counter() - t0
+    launches = {"K1": fs.binmax_scan.launches, "K2": fs.binmax_scan_i8.launches}
+    log(f"[quickstart] three engines on {device}: {seconds:.2f} s, launches "
+        f"{launches}")
+    return {"seconds": seconds, "launches": launches}
 
 
 # -- phase 9 -------------------------------------------------------------------
@@ -2193,12 +2292,14 @@ def main() -> int:
         data = make_data()
         run = phase_server(tmp, data)
         index_run = phase_flat_index(data, run["recall_k1"])
+        frontier_run = phase_frontier(data, index_run.pop("i8"))
         sharded_run = phase_sharded(tmp, data, run, index_run)
         del data
         bq_run = phase_bq(os.path.join(tmp, "bq"))
         pq_run = phase_pq(os.path.join(tmp, "pq"))
         cflat_run = phase_cflat(os.path.join(tmp, "cflat"))
         core_run = phase_core(os.path.join(tmp, "core"))
+        quickstart_run = phase_quickstart(os.path.join(tmp, "quickstart"))
     except Exception:  # noqa: BLE001 — any failure fails the smoke
         traceback.print_exc()
         return 1
@@ -2210,6 +2311,7 @@ def main() -> int:
         key = (rec["codes"], rec["loop"])
         rec["launches_by_path"] = {"edge_server": run["k1_by_loop"].get(key, 0),
                                    "flat_index": index_run["k1_by_loop"].get(key, 0),
+                                   "frontier": frontier_run["k1_by_loop"].get(key, 0),
                                    "edge_pq": pq_run["k1_by_loop"].get(key, 0),
                                    "sharded": sharded_run["k1_by_loop"].get(key, 0)}
         rec["launches"] = rec["launches_by_path"]["flat_index"]
@@ -2222,6 +2324,7 @@ def main() -> int:
         "launches": index_run["launches"]["K1"],
         "launches_by_path": {"edge_server": run["launches"]["K1"],
                              "flat_index": index_run["launches"]["K1"],
+                             "frontier": frontier_run["launches"]["K1"],
                              "edge_pq": pq_run["k1_launches"],
                              "sharded": sharded_run["launches"]["K1"],
                              "cflat": cflat_run["launches"]["K1"],
@@ -2237,6 +2340,7 @@ def main() -> int:
         "launches": index_run["launches"]["K2"],
         "launches_by_path": {"edge_server": run["launches"]["K2"],
                              "flat_index": index_run["launches"]["K2"],
+                             "frontier": frontier_run["launches"]["K2"],
                              "sharded": sharded_run["launches"]["K2"],
                              "cflat": cflat_run["launches"]["K2"],
                              "core": core_run["launches"]["K2"]},
@@ -2246,7 +2350,11 @@ def main() -> int:
                                  if k != "k1_by_loop"},
                     "bq": bq_run, "pq": {k: v for k, v in pq_run.items()
                                           if k != "k1_by_loop"},
-                    "cflat": cflat_run, "core": core_run}, default=str))
+                    "cflat": cflat_run, "core": core_run,
+                    "frontier": {k: v for k, v in frontier_run.items()
+                                 if k != "k1_by_loop"},
+                    "quickstart": quickstart_run},
+                   default=str))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

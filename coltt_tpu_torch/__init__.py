@@ -9,12 +9,15 @@ other writes. Tensors are torch tensors on an explicit device (default
 at first use. This package never imports JAX.
 """
 
+from coltt_tpu_torch.version import __version__
+
 from coltt_tpu_torch.ops.quant import Quantization
 from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.index.schema import CollectionSchema, FieldSchema, FieldType
 from coltt_tpu_torch.index.filter import Filter, CompositeFilter, Op, LogicalOp
 
 __all__ = [
+    "__version__",
     "Quantization",
     "Metric",
     "CollectionSchema",

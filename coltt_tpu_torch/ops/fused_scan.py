@@ -29,14 +29,26 @@ The reduction keeps one survivor per bin, so two true top-k rows in one
 bin lose the weaker one (pair collision probability bin/N: < 0.2% recall
 at k=10, bin=32, N=1M).
 
-Selection: ``final="exact"``, and ``"approx"`` / ``"auto"``, are all an
-exact ``torch.topk`` over the survivors. The JAX package's ``approx``
-is ``lax.approx_max_k``, a TPU operation that is an exact top-k on the
-CPU, where the reference is checked; so this is what the reference
-computes there. ``final="slot2"`` (:func:`_slot2_select`) keeps the best
-two members of each strided slot of S bins and runs the exact top-k over
-``[Q, 2*nb/S]`` only. The reference's measurement-only variants
-(``slot2t``, ``slot2c``, ``slot2a``, ``approx2``) are not ported.
+Selection (``final``, :data:`FINALS`): ``"slot2"`` (:func:`_slot2_select`)
+keeps the best two members of each strided slot of S bins and runs the
+exact top-k over ``[Q, 2*nb/S]`` only; ``"exact"`` is an exact
+``torch.topk`` over all the survivors. The reference's other names are
+computed otherwise but give the same ids, so they are aliases here:
+
+- ``"approx"`` / ``"auto"`` are the exact top-k: the reference's
+  ``lax.approx_max_k`` is a TPU operation that is an exact top-k on the
+  CPU, where the reference is checked.
+- ``"approx2"`` is the exact top-k: the reference takes the top-k of each
+  half of the bins (``approx_max_k`` again), then the top-k of the ``2k``
+  candidates, which with exact halves is the exact top-k, ties aside.
+- ``"slot2t"``, ``"slot2c"`` and ``"slot2a"`` are ``"slot2"``: the
+  reference finds the same two survivors per slot by pairwise merges, by a
+  linear min/max cascade, and by slot2's reduction with an
+  ``approx_max_k`` tail. The member tags make the keys of a slot
+  distinct, so the survivors are bit-identical to slot2's.
+
+Separate paths for the aliases were only slower on the H100 (PERF.md,
+the selection frontier).
 
 Unit-norm int8 path (:func:`fused_unit_i8_neg_topk`): rows normalized and
 quantized under ONE global scale, so the raw s8 x s8 -> s32 dot ranks
@@ -79,6 +91,11 @@ _REF_STEP_BYTES = 1 << 28
 
 _DEAD = -(1 << 30)  # K2 key of a bin with no valid row: below every real key
 _UNIT_MAX_DIM = 2048  # |dot| <= 127^2 * D; << 5 must stay under 2^30
+
+# the selections of the [Q, nb] bin survivors (the module docstring)
+FINALS = ("auto", "exact", "approx", "approx2", "slot2", "slot2t", "slot2c",
+          "slot2a")
+_SLOT2 = ("slot2", "slot2t", "slot2c", "slot2a")  # the rest: exact top-k
 
 _QTILES = (32, 64, 128)  # query tiles the int8 tensor-core loop is built for
 _EXACT_QTILES = (16, 32, 64, 128)  # query tiles of K1's exact-f32 loop
@@ -538,6 +555,30 @@ def scan_inputs(queries, codes, scale, sqnorm, valid, *, metric):
     }
 
 
+def fused_scan_keys(queries, codes, scale, sqnorm, valid, *,
+                    metric: Metric = Metric.COSINE,
+                    compute_dtype=torch.bfloat16) -> dict:
+    """The scan step of :func:`fused_scan_neg_topk`: K1 over the rows.
+
+    Returns :func:`scan_inputs`'s dict with ``keys`` (K1's ``[Qp, nb]``
+    int32 bin survivors), ``chunk`` and ``sbits`` (the slice bits in the
+    keys' low mantissa) added; :func:`select_bins` selects on the keys.
+    """
+    metric = Metric.parse(metric)
+    if codes.dtype != torch.int8 and compute_dtype not in (torch.bfloat16,
+                                                           torch.float32):
+        raise ValueError(f"fused scan computes in bf16 or f32, not {compute_dtype}")
+    chunk = chunk_for(codes.shape[0])
+    inp = scan_inputs(queries, codes, scale, sqnorm, valid, metric=metric)
+    inp["keys"] = binmax_scan(
+        inp["queries"], codes, inp["rowmul"], inp["rowadd"], chunk=chunk,
+        round_bf16=compute_dtype == torch.bfloat16,
+    )
+    inp["chunk"] = chunk
+    inp["sbits"] = (chunk // _LANES).bit_length() - 1
+    return inp
+
+
 def fused_scan_neg_topk(
     queries,
     codes,
@@ -555,35 +596,16 @@ def fused_scan_neg_topk(
     Drop-in for :func:`coltt_tpu_torch.ops.topk.scan_neg_topk` where
     :func:`supports` holds. Float codes are multiplied as ``compute_dtype``
     operands (bf16, or f32 for unquantized stores); int8 codes take the
-    s8 x s8 product with queries quantized on the fly. ``final``: "exact",
-    "approx" or "auto", all an exact top-k over the survivors, or "slot2"
-    (module docstring).
+    s8 x s8 product with queries quantized on the fly. ``final``, one of
+    :data:`FINALS`, picks the selection over the bin survivors (module
+    docstring); any other name raises.
     """
-    metric = Metric.parse(metric)
     _check_final(final)
-    if codes.dtype != torch.int8 and compute_dtype not in (torch.bfloat16,
-                                                           torch.float32):
-        raise ValueError(f"fused scan computes in bf16 or f32, not {compute_dtype}")
-    n = codes.shape[0]
-    chunk = chunk_for(n)
+    inp = fused_scan_keys(queries, codes, scale, sqnorm, valid, metric=metric,
+                          compute_dtype=compute_dtype)
+    keys, chunk = inp["keys"], inp["chunk"]
     nsl = chunk // _LANES
-    sbits = nsl.bit_length() - 1
-    inp = scan_inputs(queries, codes, scale, sqnorm, valid, metric=metric)
-
-    keys = binmax_scan(
-        inp["queries"], codes, inp["rowmul"], inp["rowadd"], chunk=chunk,
-        round_bf16=compute_dtype == torch.bfloat16,
-    )
-    nb = keys.shape[1]
-    kk = min(k, nb)
-    # select on the f32 VIEW of the keys: valid keys are bit patterns of
-    # positive normal floats (order kept, all 32 bits), tombstones are
-    # ~-3e38 normals that sort last
-    if final == "slot2" and kk < nb and _slot_plan(nb):
-        sel, pos, drop = _slot2_select(keys, kk, sbits)
-    else:
-        sel, pos = _topk_keys(keys, kk, float_view=True)
-        drop = sbits
+    sel, pos, drop = select_bins(keys, min(k, keys.shape[1]), final, inp["sbits"])
     ids = (pos // _LANES) * chunk + (sel & (nsl - 1)).to(pos.dtype) * _LANES \
         + pos % _LANES
     best = (sel & -(1 << drop)).view(torch.float32)
@@ -595,11 +617,23 @@ def fused_scan_neg_topk(
     return negd[:q], ids[:q].to(torch.int32)
 
 
+def select_bins(keys, kk: int, final: str, low_bits: int):
+    """The selection stage of :func:`fused_scan_neg_topk`: the best ``kk``
+    of K1's ``[Q, nb]`` keys under ``final`` (module docstring), as
+    ``(sel, pos, drop_bits)``: the selected keys, their bin columns, and
+    how many low key bits are index payload (``low_bits``, the slice
+    bits, unless slot2's member tag added its own). Selects on the f32
+    view of the keys: valid keys are bit patterns of positive normal
+    floats (order kept, all 32 bits), tombstones ~-3e38 normals that sort
+    last."""
+    if final in _SLOT2:
+        return _slot2_select(keys, kk, low_bits)
+    return (*_topk_keys(keys, kk, float_view=True), low_bits)
+
+
 def _check_final(final: str) -> None:
-    if final not in ("auto", "exact", "approx", "slot2"):
-        raise NotImplementedError(
-            f"final={final!r} is a measurement-only selection of the JAX "
-            f"package, left behind on purpose (ROADMAP Queue 1)")
+    if final not in FINALS:
+        raise ValueError(f"final={final!r}: not one of {', '.join(FINALS)}")
 
 
 def fused_scan_topk(
@@ -743,8 +777,9 @@ def fused_unit_i8_neg_topk(queries, codes, gscale, bin_live, *, k,
     cosine distance (comparable across stores, since ``gscale`` is global
     and the query factor is per query) and the row ids. ``final``:
     "auto" is slot2 above 8192 bins, else exact; "approx" is exact, as in
-    :func:`fused_scan_neg_topk`. Callers rerank the shortlist, which also
-    drops a tombstoned or padding row that won a live bin.
+    :func:`fused_scan_neg_topk`; every other name of :data:`FINALS` is the
+    exact top-k, as in the reference. Callers rerank the shortlist, which
+    also drops a tombstoned or padding row that won a live bin.
     """
     _check_final(final)
     queries = torch.as_tensor(queries, dtype=torch.float32, device=codes.device)
@@ -772,8 +807,9 @@ def fused_unit_i8_neg_topk(queries, codes, gscale, bin_live, *, k,
     nb = packed.shape[1]
     kk = min(k, nb)
     if final == "auto":
-        # slot2 at serving sizes: an exact top-k over [Q, ~31k] bins costs
-        # about as much as the scan (the reference's measured frontier)
+        # slot2 at serving sizes, the reference's rule from its TPU frontier
+        # (an exact top-k over [Q, ~31k] bins cost about as much as the
+        # scan there); K2's keys have no H100 frontier yet
         final = "slot2" if (nb > 8192 and _slot_plan(nb)) else "exact"
     if final == "slot2" and kk < nb and _slot_plan(nb):
         ssel, pos, _ = _slot2_select(shifted, kk, sh, float_view=False)

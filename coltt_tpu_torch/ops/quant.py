@@ -65,6 +65,11 @@ def storage_dtype(q: Quantization) -> torch.dtype:
     return _STORAGE_DTYPES[q]
 
 
+def bytes_per_component(q: Quantization) -> int:
+    """Bytes of one stored component under ``q``."""
+    return storage_dtype(q).itemsize
+
+
 def quantize(x: torch.Tensor, q: Quantization):
     """Quantize ``x: [..., D] float32`` -> ``(codes, scale)``.
 

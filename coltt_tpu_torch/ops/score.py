@@ -18,3 +18,11 @@ def normalize_score(dist, metric: Metric):
     if metric == Metric.COSINE:
         return ((2.0 - dist) / 2.0) * 100.0
     return torch.clamp(100.0 - dist, min=0.0)
+
+
+def denormalize_score(score, metric: Metric):
+    """score -> distance (inverse of :func:`normalize_score`)."""
+    metric = Metric.parse(metric)
+    if metric == Metric.COSINE:
+        return 2.0 - (score / 100.0) * 2.0
+    return 100.0 - score

@@ -5,6 +5,11 @@ over a :class:`~coltt_tpu_torch.parallel.mesh.Mesh` of torch devices, with
 a per-shard local top-k and a merge of the ``[Q, k]`` partials; the query
 axis of the mesh is data parallelism over concurrent queries; across
 processes the partials merge once more through ``torch.distributed``.
+
+The JAX package also exports ``shard_spec`` and ``replicated_spec`` (and
+defines ``batch_spec``): ``jax.sharding`` partition specs, which have no
+torch counterpart. Here a :class:`Mesh` and :class:`ShardedRows` say where
+rows live, so those names are not ported.
 """
 
 from coltt_tpu_torch.parallel.mesh import (

@@ -221,7 +221,10 @@ def sharded_scan_topk(
     by shard. ``pqcodes`` may be a host numpy table of every row (the
     host-codes mode): each shard's shortlist rows are gathered there and
     uploaded. ``fused=True`` scans through K1 (``ops/fused_scan.py``)
-    where its shape rules hold: on a mesh, once per shard.
+    where its shape rules hold: on a mesh, once per shard; ``final``
+    selects its bin survivors in every shard branch, one of
+    ``fused_scan.FINALS`` (``auto``, ``exact``, ``approx``, ``approx2``,
+    ``slot2``, ``slot2t``, ``slot2c``, ``slot2a``).
     ``bypass_single=False`` runs the shard body and merge even on a
     one-device mesh."""
     metric = Metric.parse(metric)

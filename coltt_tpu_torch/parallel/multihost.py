@@ -91,7 +91,8 @@ def init_distributed(
     starts the group of ``num_processes`` processes, this one ranked
     ``process_id``; without it this is a no-op (one process). ``devices``
     are the devices this process's mesh will hold (default: every visible
-    CUDA device, else the CPU); the backend is the module's rule over
+    CUDA device, and without one it raises: host shards are asked for as
+    ``devices=["cpu", ...]``); the backend is the module's rule over
     every process's devices (:func:`choose_backend`). Joining waits
     at most ``timeout_s`` for the other processes, and a collective as
     long, so a missing peer fails instead of hanging."""
@@ -99,11 +100,12 @@ def init_distributed(
         n = 1 if num_processes is None else int(num_processes)
         rank = 0 if process_id is None else int(process_id)
         timeout = datetime.timedelta(seconds=timeout_s)
+        # resolved before the rendezvous, so that a box without the cards
+        # asked for fails before it opens a store
+        devices = [as_device(d) for d in
+                   (devices if devices is not None else default_devices())]
         host, port = coordinator_address.rsplit(":", 1)
         store = dist.TCPStore(host, int(port), n, is_master=rank == 0, timeout=timeout)
-        if devices is None:
-            devices = default_devices() if torch.cuda.is_available() else ["cpu"]
-        devices = [as_device(d) for d in devices]
         store.set(f"coltt/devices/{rank}", ",".join(device_keys(devices)))
         backend = choose_backend([store.get(f"coltt/devices/{r}").decode().split(",")
                                   for r in range(n)])

@@ -35,7 +35,7 @@ from coltt_tpu.ops.distance import Metric as JMetric
 from coltt_tpu.ops.quant import Quantization as JQuant
 from coltt_tpu.parallel import dist_search as jds
 from coltt_tpu.parallel.mesh import make_mesh
-from coltt_tpu_torch import bench
+from coltt_tpu_torch import bench, bench_frontier
 from coltt_tpu_torch.ops import fused_scan as fs
 from coltt_tpu_torch.ops import topk as ttopk
 from coltt_tpu_torch.ops.distance import Metric
@@ -132,6 +132,12 @@ _CONFIGS = {
     "i8-slot2": (dict(quantization=JQuant.I8, rerank_dtype=jnp.bfloat16),
                  dict(quantization=Quantization.I8, rerank_dtype=torch.bfloat16),
                  dict(fused=True, oversample=4, final="slot2")),
+    "i8-approx2": (dict(quantization=JQuant.I8, rerank_dtype=jnp.bfloat16),
+                   dict(quantization=Quantization.I8, rerank_dtype=torch.bfloat16),
+                   dict(fused=True, oversample=4, final="approx2")),
+    "i8-slot2t": (dict(quantization=JQuant.I8, rerank_dtype=jnp.bfloat16),
+                  dict(quantization=Quantization.I8, rerank_dtype=torch.bfloat16),
+                  dict(fused=True, oversample=4, final="slot2t")),
     "unit-i8": (dict(quantization=JQuant.I8, rerank_dtype=jnp.bfloat16, unit_i8=True),
                 dict(quantization=Quantization.I8, rerank_dtype=torch.bfloat16,
                      unit_i8=True),
@@ -464,4 +470,39 @@ def test_bench_main_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert bench.main([]) == 1
+    assert capsys.readouterr().out == ""
+
+
+def test_frontier_run_small(monkeypatch):
+    """bench_frontier's measurement on the CPU at a small size (the
+    selection's time needs the card and is stubbed): every final reports
+    its record; the slot2 aliases give slot2's ids, and approx and approx2
+    (aliases of the exact top-k) give exact's and select the same keys."""
+    monkeypatch.setattr(bench_frontier, "selection_ms", lambda *a, **kw: 0.0)
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((N, D)).astype(np.float32)
+    idx = bench.build_index(rows, "cpu", unit_i8=False)
+    gt = tds.DistributedFlatIndex("cpu", rows, quantization=Quantization.NONE)
+    q_batches = [torch.from_numpy(rng.standard_normal((8, D), dtype=np.float32))
+                 for _ in range(2)]
+    queries = rng.standard_normal((16, D), dtype=np.float32)
+    records, detail = bench_frontier.frontier(
+        idx, q_batches, queries, gt.search(queries, K)[1], warm=1, rounds=2)
+    assert tuple(records) == bench_frontier.FINALS
+    for final, rec in records.items():
+        assert rec["qps"] > 0 and len(rec["qps_rounds"]) == 2, final
+        assert rec["recall_at_10"] >= 0.9, final
+        assert rec["k1_launches_per_search"] == {}, final  # plain version here
+    for final in ("slot2t", "slot2c", "slot2a"):
+        np.testing.assert_array_equal(detail[final]["ids"], detail["slot2"]["ids"])
+    for final in ("approx", "approx2"):
+        np.testing.assert_array_equal(detail[final]["ids"], detail["exact"]["ids"])
+        np.testing.assert_array_equal(detail[final]["sel"], detail["exact"]["sel"])
+        assert records[final]["ids_equal_to_exact"] == 1.0
+
+
+def test_bench_frontier_needs_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert bench_frontier.main([]) == 1
     assert capsys.readouterr().out == ""

@@ -48,3 +48,24 @@ def test_two_process_gloo_search():
     for pid, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"worker {pid} failed:\n{out}"
         assert f"OK-{pid}" in out, f"worker {pid} gave no OK:\n{out}"
+
+
+def test_init_distributed_without_devices_needs_a_card(monkeypatch):
+    """Without ``devices=`` the process's devices are every visible card,
+    and where torch sees none, joining fails before any rendezvous store
+    is opened: host shards are asked for by name, never picked."""
+    import torch
+    import torch.distributed as dist
+
+    from coltt_tpu_torch.parallel import multihost
+
+    def no_store(*a, **kw):
+        raise AssertionError("a store was opened")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    monkeypatch.setattr(dist, "TCPStore", no_store)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        multihost.init_distributed(f"127.0.0.1:{_free_port()}", num_processes=1,
+                                   process_id=0)
+    assert not dist.is_initialized()

@@ -16,11 +16,12 @@ from coltt_tpu.ops.quant import quantize as j_quantize
 from coltt_tpu_torch.ops.distance import Metric, pairwise_distance
 from coltt_tpu_torch.ops.quant import (
     Quantization,
+    bytes_per_component,
     dequantize,
     quantize,
     storage_dtype,
 )
-from coltt_tpu_torch.ops.score import normalize_score
+from coltt_tpu_torch.ops.score import denormalize_score, normalize_score
 
 torch.set_num_threads(2)
 
@@ -89,3 +90,36 @@ def test_sparse_codecs_not_ported(q):
                 fn()
             errors.append(type(info.value))
         assert errors == [ValueError, ValueError]
+
+
+@pytest.mark.parametrize("metric", list(Metric), ids=lambda m: m.name)
+def test_denormalize_score_matches_the_reference(metric, rng):
+    """The port's score -> distance map against the reference's, for every
+    metric, on scores across the 0-100 scale and past it; the round trip
+    through normalize_score returns the distance where no clamp bites."""
+    from coltt_tpu.ops.score import denormalize_score as j_denormalize
+
+    scores = np.concatenate([rng.uniform(-20.0, 120.0, 64),
+                             [0.0, 50.0, 100.0]]).astype(np.float32)
+    got = denormalize_score(torch.from_numpy(scores), metric).numpy()
+    want = np.asarray(j_denormalize(jnp.asarray(scores), int(metric)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    dist = torch.from_numpy(rng.uniform(0.0, 2.0, 64).astype(np.float32))
+    back = denormalize_score(normalize_score(dist, metric), metric)
+    np.testing.assert_allclose(back.numpy(), dist.numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("q", list(Quantization), ids=lambda q: q.name)
+def test_bytes_per_component_matches_the_reference(q):
+    """The stored item size of every quantization, as the reference gives
+    it; the sparse codecs raise in both packages."""
+    from coltt_tpu.ops.quant import bytes_per_component as j_bytes
+
+    if q in (Quantization.PQ, Quantization.BQ):
+        with pytest.raises(ValueError):
+            j_bytes(JQuant(int(q)))
+        with pytest.raises(ValueError):
+            bytes_per_component(q)
+        return
+    assert bytes_per_component(q) == j_bytes(JQuant(int(q)))
+    assert bytes_per_component(q) == storage_dtype(q).itemsize

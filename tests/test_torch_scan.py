@@ -427,26 +427,25 @@ def test_supports_and_unported_modes(rng):
     assert not fs.supports(8192, 768, Metric.COSINE, torch.float16)
     assert fs.chunk_for(8192) == 4096 and fs.chunk_for(2048) == 2048
     vecs, st = _store(rng, n=2048)
-    negd, ids = st.port(vecs[:1], k=1, final="slot2")
-    assert ids.shape == (1, 1) and np.isfinite(negd).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        st.port(vecs[:1], k=1, final="slot2t")
+    assert len(fs.FINALS) == 8
+    for final in fs.FINALS:  # every selection of the reference is accepted
+        negd, ids = st.port(vecs[:1], k=1, final=final)
+        assert ids.shape == (1, 1) and np.isfinite(negd).all(), final
+        assert ids[0, 0] == 0, final
+    with pytest.raises(ValueError, match="not one of"):
+        st.port(vecs[:1], k=1, final="slot3")
 
 
-@pytest.mark.parametrize("case", ["planted", "tombstone", "wide-k"])
-def test_fused_slot2_matches_jax(rng, case):
-    """K1 with final="slot2" against the reference's slot2, on the cases
-    of tests/test_scan_pallas.py: planted rows in distinct bins and slots,
-    a tombstoned self-match, and a k wider than the slot2 survivors
-    (exact fallback)."""
+def _final_case(rng, case):
+    """``(store, queries, k)`` of one case of tests/test_scan_pallas.py's
+    slot2 tests: planted rows in distinct bins and slots, a tombstoned
+    self-match, and a k wider than the slot2 survivors."""
     n = 2048 if case == "wide-k" else N
     vecs = rng.standard_normal((n, D)).astype(np.float32)
     q = rng.standard_normal((3, D)).astype(np.float32)
-    planted = [17, BIN_ROWS * 5 + 3, BIN_ROWS * 20, BIN_ROWS * 40 + 99,
-               BIN_ROWS * 60 + 1]
     k = K
     if case == "planted":
-        for j, slot in enumerate(planted):
+        for j, slot in enumerate(_PLANTED):
             vecs[slot] = q[0] * (1.0 + 0.01 * j)
     st = _Store(vecs)
     if case == "tombstone":
@@ -456,6 +455,21 @@ def test_fused_slot2_matches_jax(rng, case):
         k = 3
     if case == "wide-k":
         k = 64  # nbins = 128 -> width 4, 2 * 4 < 64
+    return st, q, k
+
+
+_PLANTED = [17, BIN_ROWS * 5 + 3, BIN_ROWS * 20, BIN_ROWS * 40 + 99,
+            BIN_ROWS * 60 + 1]
+
+
+@pytest.mark.parametrize("case", ["planted", "tombstone", "wide-k"])
+def test_fused_slot2_matches_jax(rng, case):
+    """K1 with final="slot2" against the reference's slot2, on the cases
+    of tests/test_scan_pallas.py: planted rows in distinct bins and slots,
+    a tombstoned self-match, and a k wider than the slot2 survivors
+    (exact fallback)."""
+    st, q, k = _final_case(rng, case)
+    planted = _PLANTED
     port = st.port(q, k=k, final="slot2")
     _assert_same_topk(st.jax(q, k=k, final="slot2"), port)
     if case == "planted":
@@ -464,6 +478,54 @@ def test_fused_slot2_matches_jax(rng, case):
         assert 7 not in port[1][0].tolist()
     if case == "wide-k":
         np.testing.assert_array_equal(port[1], st.port(q, k=k, final="exact")[1])
+
+
+@pytest.mark.parametrize("case", ["planted", "tombstone", "wide-k"])
+@pytest.mark.parametrize("final", fs.FINALS)
+def test_fused_final_matches_jax(rng, final, case):
+    """Every selection of K1's bin survivors against the reference's, on
+    the slot2 cases. At these sizes (256 and 64 bins) the reference's
+    approx2 takes the exact top-k too, as it does below 16384 bins;
+    test_fused_approx2_splits_like_jax holds its split."""
+    st, q, k = _final_case(rng, case)
+    port = st.port(q, k=k, final=final)
+    _assert_same_topk(st.jax(q, k=k, final=final), port)
+    if case == "planted":
+        assert set(port[1][0].tolist()) == set(_PLANTED)
+    if final in ("slot2t", "slot2c", "slot2a"):
+        # the same two survivors per slot, and the same exact tail
+        np.testing.assert_array_equal(port[1], st.port(q, k=k, final="slot2")[1])
+    if final in ("auto", "approx", "approx2"):
+        np.testing.assert_array_equal(port[1], st.port(q, k=k, final="exact")[1])
+
+
+@pytest.mark.parametrize("quant", [JQuant.I8, JQuant.F8], ids=lambda q: q.name)
+def test_fused_approx2_splits_like_jax(rng, quant):
+    """The reference's approx2 splits the bins in halves from 16384 bins:
+    524,288 rows (chunk 4096, so 128 bins a chunk). The port's approx2 is
+    its exact top-k (ops/fused_scan.py's docstring); the reference runs K1
+    interpreted at this size in about a second, so the whole path is held
+    against the reference's split: ids equal to the reference's approx2
+    and to the port's exact top-k, with a planted winner in each half and
+    a query with its winners in one half only."""
+    n = 524_288
+    assert n // BIN_ROWS == 16384
+    vecs = rng.standard_normal((n, D)).astype(np.float32)
+    q = rng.standard_normal((4, D)).astype(np.float32)
+    # distinct winners (equal keys may come out in either order)
+    bump = 0.1 * rng.standard_normal((5, D)).astype(np.float32)
+    vecs[[100, n - 100]] = q[0] + bump[:2]               # one in each half
+    vecs[[40, 4096 + 7, 70_000]] = q[1] + bump[2:]       # all in the first
+    valid = np.ones(n, bool)
+    valid[n // 2 + 5] = False
+    vecs[n // 2 + 5] = q[2]                      # a tombstoned self-match
+    st = _Store(vecs, quant, valid)
+    port = st.port(q, k=16, final="approx2")
+    _assert_same_topk(st.jax(q, k=16, final="approx2"), port)
+    np.testing.assert_array_equal(port[1], st.port(q, k=16, final="exact")[1])
+    assert {100, n - 100} <= set(port[1][0].tolist())
+    assert {40, 4096 + 7, 70_000} <= set(port[1][1].tolist())
+    assert n // 2 + 5 not in port[1][2].tolist()
 
 
 def test_wrapper_counts_only_kernel_launches(rng):

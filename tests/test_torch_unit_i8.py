@@ -252,9 +252,26 @@ def test_unit_i8_rejects_wide_dims_and_other_finals(rng):
     assert fs.unit_i8_supports(2048, 2048, "cosine")
     assert not fs.unit_i8_supports(2048, 128, "euclidean")
     codes = torch.zeros((2048, 128), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="not one of"):
         fs.fused_unit_i8_neg_topk(torch.zeros((1, 128)), codes, 1.0, live, k=3,
-                                  final="slot2t")
+                                  final="slot3")
+
+
+@pytest.mark.parametrize("final", ["slot2t", "slot2c", "slot2a", "approx2"])
+def test_fused_unit_i8_other_finals_are_exact(rng, final):
+    """The reference sends every final but slot2 and approx to the exact
+    top-k on the unit-i8 path (at 8320 bins slot2 has a plan, so slot2
+    would differ); the port does the same."""
+    n, d, k = 266_240, 128, 40
+    codes = rng.integers(-30, 31, (n, d)).astype(np.int8)
+    q = rng.standard_normal((3, d)).astype(np.float32)
+    live = np.ones(n // 32, bool)
+    live[-300:] = False
+    got = _unit_both(q, codes, np.float32(0.01), live, k=k, final=final)
+    _assert_same(*got)
+    exact = _unit_both(q, codes, np.float32(0.01), live, k=k, final="exact")
+    np.testing.assert_array_equal(got[1][1], exact[1][1])
+    np.testing.assert_array_equal(got[1][0], exact[1][0])
 
 
 def test_k2_wrapper_counts_only_kernel_launches(rng):
