@@ -16,32 +16,42 @@ from __future__ import annotations
 import argparse
 import gc
 import http.server
+import json
 import os
 import signal
 import sys
 import threading
 import traceback
 
+from coltt_tpu_torch.utils import trace
 from coltt_tpu_torch.utils.config import load_config
 from coltt_tpu_torch.utils.logging import get_logger
 
 log = get_logger("main")
 
 
-def _start_prof_server(addr: str) -> None:
+def _start_prof_server(addr: str):
     """pprof-equivalent: a tiny HTTP endpoint exposing thread stacks
-    (net/http/pprof parity, cmd/root/main.go:61-75)."""
+    (net/http/pprof parity, cmd/root/main.go:61-75) at ``/``, and at
+    ``/debug/trace`` the served path's spans and counters as JSON
+    (``utils/trace.py`` ``summary``). Returns the HTTP server, or None
+    where the address cannot be bound."""
     host, _, port = addr.rpartition(":")
 
     class Handler(http.server.BaseHTTPRequestHandler):
         def do_GET(self):
-            frames = sys._current_frames()
-            body = "".join(
-                f"--- thread {tid} ---\n" + "".join(traceback.format_stack(frame))
-                for tid, frame in frames.items()
-            ).encode()
+            if self.path == "/debug/trace":
+                body = json.dumps(trace.summary()).encode()
+                ctype = "application/json"
+            else:
+                frames = sys._current_frames()
+                body = "".join(
+                    f"--- thread {tid} ---\n" + "".join(traceback.format_stack(frame))
+                    for tid, frame in frames.items()
+                ).encode()
+                ctype = "text/plain"
             self.send_response(200)
-            self.send_header("Content-Type", "text/plain")
+            self.send_header("Content-Type", ctype)
             self.end_headers()
             self.wfile.write(body)
 
@@ -52,9 +62,10 @@ def _start_prof_server(addr: str) -> None:
         server = http.server.ThreadingHTTPServer((host or "0.0.0.0", int(port)), Handler)
     except OSError as e:
         log.warning(f"prof server unavailable: {e}")
-        return
+        return None
     threading.Thread(target=server.serve_forever, daemon=True).start()
     log.info("prof server listening", extra={"kv": {"addr": addr}})
+    return server
 
 
 def main() -> None:

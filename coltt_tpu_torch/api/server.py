@@ -14,6 +14,7 @@ transport failure, and is logged with method + latency.
 
 from __future__ import annotations
 
+import threading
 import time
 from concurrent import futures
 from typing import Callable, Dict, Optional, Tuple
@@ -44,34 +45,76 @@ from coltt_tpu_torch.engine.experimental import ExperimentalEngine
 from coltt_tpu_torch.ops.distance import Metric
 from coltt_tpu_torch.ops.quant import Quantization
 from coltt_tpu_torch.store.hnsw import HEURISTIC, SIMPLE, HnswConfig
+from coltt_tpu_torch.utils import trace
 from coltt_tpu_torch.utils.config import Config
 from coltt_tpu_torch.utils.logging import get_logger
 
 log = get_logger("rpc")
 
 
-def _guarded(fn: Callable, make_error_response: Callable):
+# the method of the handler running on this thread: ``_guarded`` sets it,
+# ``_TracedPool`` reads it when the task ends
+_rpc = threading.local()
+
+
+def _guarded(fn: Callable, make_error_response: Callable, method: str):
     """recover()-parity wrapper: exceptions -> error responses, with
-    per-request structured logging (interceptorLogger parity)."""
+    per-request structured logging (interceptorLogger parity); the
+    ``rpc.handler`` span's two stamps give the logged latency."""
 
     def wrapper(request, context):
-        t0 = time.perf_counter()
+        _rpc.method = method
+        t0 = time.monotonic_ns()
         try:
             resp = fn(request, context)
             status = "ok"
         except Exception as e:  # noqa: BLE001 — this IS the panic handler
             resp = make_error_response(e)
             status = f"error: {e}"
+        t1 = time.monotonic_ns()
+        trace.record("rpc.handler", method, t0, t1)
         log.info(
             fn.__qualname__,
             extra={"kv": {
-                "latency_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                "latency_ms": round((t1 - t0) / 1e6, 3),
                 "status": status,
             }},
         )
         return resp
 
     return wrapper
+
+
+def _traced(name: str, method: str, fn: Callable) -> Callable:
+    """``fn`` (a message's decode or encode) under the span ``name``."""
+
+    def call(arg):
+        with trace.span(name, method):
+            return fn(arg)
+
+    return call
+
+
+class _TracedPool(futures.ThreadPoolExecutor):
+    """grpc's worker pool. Each task records its wait in the queue
+    (``rpc.queue``, submit to start) and its run (``rpc.call``: the wait for
+    the request message, the handler, the reply's serialization and the
+    start of its send) under the method of the handler that ran in it."""
+
+    def submit(self, fn, /, *args, **kwargs):
+        t_submit = time.monotonic_ns()
+
+        def task():
+            t_start = time.monotonic_ns()
+            _rpc.method = None
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                t_end = time.monotonic_ns()
+                trace.record("rpc.queue", _rpc.method, t_submit, t_start)
+                trace.record("rpc.call", _rpc.method, t_start, t_end)
+
+        return super().submit(task)
 
 
 def _vec(repeated) -> np.ndarray:
@@ -185,11 +228,12 @@ class EdgeServicer:
             high_resource=request.high_resource_avaliable,
             with_metadata=request.include_metadata,
         )
-        resp = edge_pb2.SearchBatchResponse(
-            status=True, counts=counts, scores=scores, ids=pks
-        )
-        if mds is not None:
-            resp.metadata.extend(dict_to_struct(m) for m in mds)
+        with trace.span("rpc.reply", "SearchBatch"):
+            resp = edge_pb2.SearchBatchResponse(
+                status=True, counts=counts, scores=scores, ids=pks
+            )
+            if mds is not None:
+                resp.metadata.extend(dict_to_struct(m) for m in mds)
         return resp
 
     def Search(self, request, context):
@@ -201,15 +245,16 @@ class EdgeServicer:
             filter_expression=filter_from_proto(request.filter_expression),
             high_resource=request.high_resource_avaliable,
         )
-        return edge_pb2.SearchResponse(
-            status=True,
-            candidates=[
-                edge_pb2.Candidate(
-                    metadata=dict_to_struct(h.metadata), score=h.score, id=h.id
-                )
-                for h in hits
-            ],
-        )
+        with trace.span("rpc.reply", "Search"):
+            return edge_pb2.SearchResponse(
+                status=True,
+                candidates=[
+                    edge_pb2.Candidate(
+                        metadata=dict_to_struct(h.metadata), score=h.score, id=h.id
+                    )
+                    for h in hits
+                ],
+            )
 
 
 # ---------------------------------------------------------------------------
@@ -631,11 +676,13 @@ def _error_response_factory(resp_cls):
 def generic_handler(servicer) -> grpc.GenericRpcHandler:
     handlers = {}
     for name, (req_cls, resp_cls) in RPC_TABLES[servicer.SERVICE].items():
-        fn = _guarded(getattr(servicer, name), _error_response_factory(resp_cls))
+        fn = _guarded(getattr(servicer, name), _error_response_factory(resp_cls),
+                      name)
         handlers[name] = grpc.unary_unary_rpc_method_handler(
             fn,
-            request_deserializer=req_cls.FromString,
-            response_serializer=resp_cls.SerializeToString,
+            request_deserializer=_traced("rpc.decode", name, req_cls.FromString),
+            response_serializer=_traced("rpc.encode", name,
+                                        resp_cls.SerializeToString),
         )
     return grpc.method_handlers_generic_handler(servicer.SERVICE, handlers)
 
@@ -735,9 +782,7 @@ def create_server(
         ("grpc.keepalive_permit_without_calls", 1),
         ("grpc.http2.min_recv_ping_interval_without_data_ms", 5000),
     ]
-    server = grpc.server(
-        futures.ThreadPoolExecutor(max_workers=max_workers), options=options
-    )
+    server = grpc.server(_TracedPool(max_workers=max_workers), options=options)
     server.add_generic_rpc_handlers((generic_handler(servicer),))
     if rl.tls_pem and rl.tls_key:
         with open(rl.tls_key, "rb") as kf, open(rl.tls_pem, "rb") as cf:

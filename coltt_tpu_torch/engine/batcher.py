@@ -34,6 +34,8 @@ from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import numpy as np
 
+from coltt_tpu_torch.utils import trace
+
 
 @dataclass
 class _Pending:
@@ -59,10 +61,6 @@ class ScanBatcher:
         self._lock = threading.Lock()
         self._queues: Dict[Hashable, List[_Pending]] = {}
         self._rows: Dict[Hashable, int] = {}
-        # observability: how many scans were saved by coalescing
-        self.batches_run = 0
-        self.requests_served = 0
-        self.rows_served = 0
 
     def run(
         self,
@@ -92,6 +90,7 @@ class ScanBatcher:
         # leader: give followers a short window to pile in (skip the wait
         # when this submission alone already fills the batch)
         if arr.shape[0] < self.max_batch:
+            t_wait = time.monotonic_ns()
             deadline = time.monotonic() + self.max_wait_s
             while True:
                 with self._lock:
@@ -101,6 +100,7 @@ class ScanBatcher:
                 if now >= deadline:
                     break
                 time.sleep(min(deadline - now, 0.0002))
+            trace.record("batcher.wait", None, t_wait, time.monotonic_ns())
 
         with self._lock:
             batch = self._queues.pop(key)
@@ -139,9 +139,10 @@ class ScanBatcher:
                 if not self._queues.get(key):
                     self._queues.pop(key, None)
                     self._rows.pop(key, None)
-                self.batches_run += 1
-                self.requests_served += len(batch)
-                self.rows_served += sum(p.vectors.shape[0] for p in batch)
+            # how many scans coalescing saved, process-wide
+            trace.count("batcher.groups")
+            trace.count("batcher.requests", len(batch))
+            trace.count("batcher.rows", sum(p.vectors.shape[0] for p in batch))
             for p in batch:
                 if p is not batch[0]:
                     p.done.set()

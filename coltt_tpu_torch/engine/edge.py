@@ -45,6 +45,7 @@ from coltt_tpu_torch.ops.fused_scan import load_kernels
 from coltt_tpu_torch.parallel.mesh import split
 from coltt_tpu_torch.storage.objectstore import LocalObjectStore
 from coltt_tpu_torch.store.flat import FlatStore
+from coltt_tpu_torch.utils import trace
 from coltt_tpu_torch.utils.logging import get_logger
 
 log = get_logger("edge")
@@ -289,7 +290,7 @@ class EdgeEngine:
         self, name: str, metadatas: List[Dict[str, Any]], vectors: np.ndarray
     ) -> int:
         """Bulk ingest (no reference analogue — its gRPC path is one-by-one)."""
-        with self._mu:
+        with self._mu, trace.span("engine.index_many"):
             self.state.require_loaded(name)
             col = self._collections[name]
             try:
@@ -357,9 +358,9 @@ class EdgeEngine:
         k = limit + offset
         candidates = self._candidates(col, filter_expression)
 
-        t0 = time.perf_counter()
+        t0 = time.monotonic_ns()
         scores, slots = self._scan(name, col, vector, k, candidates, high_resource)
-        latency = time.perf_counter() - t0
+        t1 = time.monotonic_ns()
 
         hits: List[SearchHit] = []
         for score, slot in zip(scores[0][offset:], slots[0][offset:]):
@@ -373,9 +374,8 @@ class EdgeEngine:
                     metadata=md,
                 )
             )
-        log.debug(
-            "search", extra={"kv": {"collection": name, "latency_ms": latency * 1e3}}
-        )
+        trace.record("engine.scan", None, t0, t1)
+        trace.record("engine.flatten", None, t1, time.monotonic_ns())
         return hits
 
     def search_batch(
@@ -407,9 +407,9 @@ class EdgeEngine:
         k = limit + offset
         candidates = self._candidates(col, filter_expression)
 
-        t0 = time.perf_counter()
+        t0 = time.monotonic_ns()
         scores, slots = self._scan(name, col, queries, k, candidates, high_resource)
-        latency = time.perf_counter() - t0
+        t1 = time.monotonic_ns()
 
         # columnar flatten, vectorized (row-major ravel preserves the
         # within-query descending order)
@@ -426,13 +426,15 @@ class EdgeEngine:
         if with_metadata:
             md_of = col.metadata
             out_mds = [md_of.get(int(s), {}) for s in flat_slots]
-        flatten_ms = (time.perf_counter() - t0 - latency) * 1e3
+        t2 = time.monotonic_ns()
+        trace.record("engine.scan", None, t0, t1)
+        trace.record("engine.flatten", None, t1, t2)
         log.debug(
             "search_batch",
             extra={"kv": {
                 "collection": name, "q": queries.shape[0],
-                "scan_ms": round(latency * 1e3, 2),
-                "flatten_ms": round(flatten_ms, 2),
+                "scan_ms": round((t1 - t0) / 1e6, 2),
+                "flatten_ms": round((t2 - t1) / 1e6, 2),
             }},
         )
         return counts, out_scores, out_pks, out_mds

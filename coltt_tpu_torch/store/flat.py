@@ -57,6 +57,7 @@ from __future__ import annotations
 import copy
 import io
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 import msgpack
@@ -93,6 +94,7 @@ from coltt_tpu_torch.parallel.dist_search import (
     sharded_scan_topk,
 )
 from coltt_tpu_torch.parallel.mesh import ShardedRows, replicate, split
+from coltt_tpu_torch.utils import trace
 
 _CAPACITY_QUANTUM = 8192
 # filtered searches with fewer than capacity // _GATHER_FRACTION candidates
@@ -196,6 +198,13 @@ def pq_cache_rows(pqcodes: torch.Tensor, codebook: PQCodebook):
         codes[s:s + step], scale[s:s + step] = c8, s8
         sqnorm[s:s + step] = (deq * deq).sum(dim=1)
     return codes, scale, sqnorm
+
+
+def _fetch(scores, slots):
+    """``fetch_scores_ids`` under the ``store.fetch`` span: the copy of a
+    top-k to the host, where the host waits for the device."""
+    with trace.span("store.fetch"):
+        return fetch_scores_ids(scores, slots)
 
 
 def _locked(fn):
@@ -517,6 +526,7 @@ class FlatStore:
         shortlist's code rows never reads a half-written row."""
         if not self._pending:
             return
+        t0 = time.monotonic_ns()
         items = sorted(self._pending.items())
         self._pending = {}
         slots_np = np.array([s for s, _ in items], np.int64)
@@ -570,6 +580,7 @@ class FlatStore:
         for name, src in updates:
             setattr(self, name, scatter_rows(getattr(self, name), slots_np, slots,
                                              src, inplace=self._readers == 0))
+        trace.record("store.sync", None, t0, time.monotonic_ns())
 
     # -- queries -----------------------------------------------------------
     def __len__(self) -> int:
@@ -709,7 +720,7 @@ class FlatStore:
                 metric=metric, compute_dtype=self.compute_dtype, fused=fused,
                 oversample=oversample, pq_rerank=pq_rr,
             )
-        return self._trim(*fetch_scores_ids(scores, slots), k)
+        return self._trim(*_fetch(scores, slots), k)
 
     def _codebook_arrays(self):
         """``(centroids, rotation, coarse)`` of the codebook as the scans
@@ -741,7 +752,7 @@ class FlatStore:
             self._where, self.codes, valid, self.rr_codes, tq,
             k=min(k, self.capacity), oversample=self._bq_oversample(oversample),
             dim=self.dim, rr_scale=self.rr_scale, compute_dtype=self.compute_dtype)
-        return self._trim(*fetch_scores_ids(scores, slots), k)
+        return self._trim(*_fetch(scores, slots), k)
 
     def _search_gathered(self, tq, cand, k, metric, oversample=1):
         """Small-candidate-set regime: gather the rows, scan the tile."""
@@ -755,7 +766,7 @@ class FlatStore:
                 oversample=self._bq_oversample(oversample), dim=self.dim,
                 compute_dtype=self.compute_dtype, rows=cand)
             scores = scores_from_negd(negd, Metric.COSINE)
-            return self._trim(*fetch_scores_ids(scores, slots), k)
+            return self._trim(*_fetch(scores, slots), k)
         if self.is_pq and not self.pq_cache:
             if self.codebook is None:
                 return self._empty(tq.shape[0], k)
@@ -769,7 +780,7 @@ class FlatStore:
                 self.valid[cand], k=min(k, n), metric=metric,
                 compute_dtype=self.compute_dtype,
             )
-        return self._trim(*fetch_scores_ids(scores, cand[local.long()]), k)
+        return self._trim(*_fetch(scores, cand[local.long()]), k)
 
     @staticmethod
     def _trim(scores, slots, k):

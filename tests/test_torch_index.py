@@ -18,6 +18,7 @@ from coltt_tpu.index.filter import filter_from_dict as j_filter_from_dict
 from coltt_tpu_torch.engine.batcher import ScanBatcher
 from coltt_tpu_torch.index.bitmap import Bitset, InvertedIndex
 from coltt_tpu_torch.index.filter import And, Filter, Op, Or, filter_from_dict
+from coltt_tpu_torch.utils import trace
 
 
 def _fill(idx, n, seed=0):
@@ -120,6 +121,7 @@ def test_batcher_coalesces_and_routes_rows():
     """Concurrent submissions share scans and each gets its own rows back."""
     b = ScanBatcher(max_batch=64, max_wait_s=0.05)
     calls = []
+    before = trace.counters()
 
     def scan_fn(q, k):
         calls.append(q.shape[0])
@@ -142,3 +144,8 @@ def test_batcher_coalesces_and_routes_rows():
         assert s.shape == (1 + i % 3, 2) and (ids == i).all()
     assert sum(calls) == sum(1 + i % 3 for i in range(8))
     assert len(calls) < 8
+    # the process-wide counters agree with the scans the batcher ran
+    grew = {k: trace.counters()[k] - before.get(k, 0)
+            for k in ("batcher.groups", "batcher.requests", "batcher.rows")}
+    assert grew == {"batcher.groups": len(calls), "batcher.requests": 8,
+                    "batcher.rows": sum(calls)}
