@@ -362,18 +362,14 @@ class EdgeEngine:
         scores, slots = self._scan(name, col, vector, k, candidates, high_resource)
         t1 = time.monotonic_ns()
 
-        hits: List[SearchHit] = []
-        for score, slot in zip(scores[0][offset:], slots[0][offset:]):
-            if slot < 0 or not np.isfinite(score):
-                continue
-            md = col.metadata.get(int(slot), {})
-            hits.append(
-                SearchHit(
-                    id=col.store.slot_to_pk.get(int(slot), ""),
-                    score=float(score),
-                    metadata=md,
-                )
-            )
+        scores, slots = scores[0][offset:], slots[0][offset:]
+        keep = (slots >= 0) & np.isfinite(scores)
+        scores, slots = scores[keep], slots[keep]
+        hits = [
+            SearchHit(id=pk, score=float(score),
+                      metadata=col.metadata.get(int(slot), {}))
+            for pk, score, slot in zip(col.store.pks_at(slots), scores, slots)
+        ]
         trace.record("engine.scan", None, t0, t1)
         trace.record("engine.flatten", None, t1, time.monotonic_ns())
         return hits
@@ -420,8 +416,7 @@ class EdgeEngine:
         flat = keep.ravel()
         out_scores = scores.ravel()[flat].tolist()
         flat_slots = slots.ravel()[flat]
-        pk_of = col.store.slot_to_pk
-        out_pks = [pk_of.get(int(s), "") for s in flat_slots]
+        out_pks = col.store.pks_at(flat_slots)
         out_mds: Optional[List[Dict[str, Any]]] = None
         if with_metadata:
             md_of = col.metadata
@@ -429,6 +424,7 @@ class EdgeEngine:
         t2 = time.monotonic_ns()
         trace.record("engine.scan", None, t0, t1)
         trace.record("engine.flatten", None, t1, t2)
+        trace.count("engine.flatten_rows", len(out_pks))
         log.debug(
             "search_batch",
             extra={"kv": {

@@ -126,8 +126,7 @@ def flat_store_from_arrays(
             np.array(rr_scale, np.float32).reshape(cap, 1)).to(dev)
     store.capacity = cap
     store._fit_layout()
-    store.pk_to_slot = dict(pk_to_slot)
-    store.slot_to_pk = {slot: pk for pk, slot in store.pk_to_slot.items()}
+    store._set_keys(pk_to_slot)
     store._free = list(free)
     store._next_slot = (int(next_slot) if next_slot is not None
                         else max(store.slot_to_pk, default=-1) + 1)

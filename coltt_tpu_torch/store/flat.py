@@ -297,6 +297,9 @@ class FlatStore:
 
         self.pk_to_slot: Dict[str, int] = {}
         self.slot_to_pk: Dict[int, str] = {}
+        # slot_to_pk as a column indexed by slot ("" at a free slot): the
+        # keys of a search's hits in one gather (pks_at)
+        self.pk_col = np.full(self.capacity, "", object)
         self._free: List[int] = []
         self._next_slot = 0
 
@@ -387,6 +390,9 @@ class FlatStore:
             self.pqcodes_host = np.concatenate([
                 self.pqcodes_host,
                 np.zeros((new_cap - self.capacity, self.pq_width), np.uint8)])
+        col = np.full(new_cap, "", object)
+        col[:len(self.pk_col)] = self.pk_col
+        self.pk_col = col
         self.capacity = new_cap
 
     # -- mutation ----------------------------------------------------------
@@ -413,6 +419,7 @@ class FlatStore:
             slot = self._take_slot()
             self.pk_to_slot[pk] = slot
             self.slot_to_pk[slot] = pk
+            self.pk_col[slot] = pk
         self._pending[slot] = vec
         return slot
 
@@ -433,6 +440,7 @@ class FlatStore:
                 slot = self._take_slot()
                 self.pk_to_slot[pk] = slot
                 self.slot_to_pk[slot] = pk
+                self.pk_col[slot] = pk
             self._pending[slot] = vec
             slots.append(slot)
         return slots
@@ -497,6 +505,8 @@ class FlatStore:
         self._next_slot = n
         self.pk_to_slot = dict(zip(pks, range(n)))
         self.slot_to_pk = dict(enumerate(pks))
+        self.pk_col = np.full(self.capacity, "", object)
+        self.pk_col[:n] = pks
 
     @_locked
     def delete(self, pk: str) -> Optional[int]:
@@ -506,6 +516,7 @@ class FlatStore:
         if slot is None:
             return None
         self.slot_to_pk.pop(slot, None)
+        self.pk_col[slot] = ""
         self._pending[slot] = None
         self._free.append(slot)
         return slot
@@ -582,9 +593,22 @@ class FlatStore:
                                              src, inplace=self._readers == 0))
         trace.record("store.sync", None, t0, time.monotonic_ns())
 
+    def _set_keys(self, pk_to_slot: Dict[str, int]) -> None:
+        """Replace the slot maps whole (a load, an adoption, a conversion),
+        after ``capacity`` is final."""
+        self.pk_to_slot = dict(pk_to_slot)
+        self.slot_to_pk = {slot: pk for pk, slot in self.pk_to_slot.items()}
+        self.pk_col = np.full(self.capacity, "", object)
+        self.pk_col[list(self.slot_to_pk)] = list(self.slot_to_pk.values())
+
     # -- queries -----------------------------------------------------------
     def __len__(self) -> int:
         return len(self.pk_to_slot)
+
+    def pks_at(self, slots: np.ndarray) -> List[str]:
+        """The primary keys at ``slots`` (each >= 0), in one gather; ""
+        where a slot holds no row."""
+        return self.pk_col[slots].tolist()
 
     @property
     def memory_bytes(self) -> int:
@@ -922,8 +946,7 @@ class FlatStore:
         store._fit_layout()
         store._next_slot = header["next_slot"]
         store._free = list(header["free"])
-        store.pk_to_slot = {pk: slot for pk, slot in header["pks"]}
-        store.slot_to_pk = {slot: pk for pk, slot in header["pks"]}
+        store._set_keys({pk: slot for pk, slot in header["pks"]})
         return store
 
     @classmethod
@@ -968,8 +991,7 @@ class FlatStore:
             store.sqnorm = pq_sqnorm(pqcodes, store.codebook)
         store.valid = torch.ones(n, dtype=torch.bool, device=store.device)
         store._fit_layout()
-        store.pk_to_slot = {str(i): i for i in range(n)}
-        store.slot_to_pk = {i: str(i) for i in range(n)}
+        store._set_keys({str(i): i for i in range(n)})
         store._next_slot = n
         return store
 

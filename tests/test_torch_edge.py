@@ -26,6 +26,7 @@ from coltt_tpu_torch.index.filter import Filter, Op, Or
 from coltt_tpu_torch.index.schema import CollectionSchema, FieldSchema, FieldType
 from coltt_tpu_torch.ops.quant import Quantization
 from coltt_tpu_torch.storage.objectstore import LocalObjectStore
+from coltt_tpu_torch.utils import trace
 from coltt_tpu_torch.utils.config import Config
 
 torch.set_num_threads(2)
@@ -396,3 +397,76 @@ def test_main_serves_edge_mode(tmp_path):
     assert proc.returncode == 0, out.decode()
     assert b"server started" in out and b"bye" in out
     assert (tmp_path / "objects" / NAME / f"{NAME}.meta.json").exists()
+
+
+# -- the flatten against the dict lookup it replaced ---------------------------
+
+FLAT_N = 600
+
+
+@pytest.fixture(scope="module")
+def flatten_engine(tmp_path_factory):
+    """A port collection of FLAT_N rows (three tagged "rare"), with d5
+    deleted and its slot taken by a fresh row."""
+    vecs, mds, _ = _data(seed=3)
+    vecs, mds = vecs[:FLAT_N], mds[:FLAT_N]
+    for i in (11, 222, 433):
+        mds[i]["tag"] = "rare"
+    e = EdgeEngine(LocalObjectStore(str(tmp_path_factory.mktemp("flatten"))),
+                   device="cpu", warmup_batches=())
+    e.create_collection(_schema())
+    e.index_many(NAME, [dict(m) for m in mds], vecs)
+    freed = e._collections[NAME].store.pk_to_slot["d5"]
+    e.index(NAME, {"pk": "d5"}, delete=True)
+    e.index(NAME, {"pk": "fresh", "tag": "t0"}, vecs[5] + 0.01)
+    assert e._collections[NAME].store.pk_to_slot["fresh"] == freed
+    queries = np.concatenate([vecs[[5, 11, 42]], _data(seed=4)[2][:5]])
+    return e, queries
+
+
+def _dict_flatten(engine, queries, *, limit, offset=0, filter_expression=None,
+                  high_resource=False, with_metadata=False):
+    """search_batch's answer by the flatten the key column replaced: one
+    slot_to_pk and metadata dict lookup a hit, on the same scan."""
+    col = engine._collections[NAME]
+    cand = engine._candidates(col, filter_expression)
+    scores, slots = engine._scan(NAME, col, queries, limit + offset, cand,
+                                 high_resource)
+    counts, out_s, out_p, out_m = [], [], [], []
+    for s_row, i_row in zip(scores[:, offset:], slots[:, offset:]):
+        live = [(s, i) for s, i in zip(s_row, i_row) if i >= 0 and np.isfinite(s)]
+        counts.append(len(live))
+        for s, i in live:
+            out_s.append(float(s))
+            out_p.append(col.store.slot_to_pk.get(int(i), ""))
+            out_m.append(col.metadata.get(int(i), {}))
+    return counts, out_s, out_p, out_m if with_metadata else None
+
+
+FLATTEN_CASES = {
+    "plain": dict(limit=10),
+    "offset": dict(limit=5, offset=3),
+    "metadata": dict(limit=10, with_metadata=True, high_resource=True),
+    "fewer_than_k": dict(limit=10, filter_expression=Filter("tag", Op.EQ, "rare")),
+}
+
+
+@pytest.mark.parametrize("case", list(FLATTEN_CASES))
+def test_flatten_matches_the_dict_lookup(flatten_engine, case):
+    engine, queries = flatten_engine
+    opts = dict(FLATTEN_CASES[case])
+    want = _dict_flatten(engine, queries, **opts)
+    before = trace.counters().get("engine.flatten_rows", 0)
+    got = engine.search_batch(NAME, queries, **opts)
+    assert trace.counters()["engine.flatten_rows"] - before == len(got[2])
+    assert got == want
+    assert len(got[2]) == sum(got[0]) and "d5" not in got[2]
+    if case == "fewer_than_k":
+        assert got[0] == [3] * len(queries)
+    if case == "plain":
+        assert got[2][0] == "fresh"  # d5's old slot, its new key
+    opts.pop("with_metadata", None)
+    for q in queries[:4]:
+        counts, scores, pks, mds = _dict_flatten(engine, q[None], with_metadata=True, **opts)
+        hits = engine.search(NAME, q, **opts)
+        assert [(h.id, h.score, h.metadata) for h in hits] == list(zip(pks, scores, mds))

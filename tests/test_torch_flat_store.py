@@ -23,6 +23,7 @@ import torch
 from coltt_tpu.ops.quant import Quantization as JQuant
 from coltt_tpu.store.flat import FlatStore as JFlatStore
 from coltt_tpu_torch.ops.distance import Metric
+from coltt_tpu_torch.ops.pq import train_pq
 from coltt_tpu_torch.ops.quant import Quantization
 from coltt_tpu_torch.store.convert import (
     flat_store_from_arrays,
@@ -414,3 +415,99 @@ def test_pq_store_trains_on_first_sync_and_bulk_builds():
                                       staged.search(q, 5, oversample=4)[1][:, 0])
     assert [staged.slot_to_pk[int(s)] for s in staged.search(q, 1, oversample=4)[1][:, 0]] \
         == pks[:4]
+
+
+# -- the slot-indexed key column -----------------------------------------------
+
+def _col_upsert(rng):
+    ts = FlatStore(D, device="cpu")
+    for i in range(40):
+        ts.upsert(f"p{i}", rng.standard_normal(D).astype(np.float32))
+    ts.upsert("p7", rng.standard_normal(D).astype(np.float32))  # an overwrite
+    return ts
+
+
+def _col_upsert_many(rng):
+    ts = FlatStore(D, device="cpu")
+    ts.upsert_many([f"p{i}" for i in range(40)], rng.standard_normal((40, D)))
+    ts.upsert_many(["p3", "new", "p9"], rng.standard_normal((3, D)))
+    return ts
+
+
+def _col_delete_reuse(rng):
+    ts = FlatStore(D, device="cpu")
+    _mutate(ts, n=300)
+    freed = ts.delete("p5")
+    assert ts.upsert("reuse", rng.standard_normal(D)) == freed
+    return ts
+
+
+def _col_bulk_build(rng):
+    ts = FlatStore(D, quantization=Quantization.I8, device="cpu")
+    ts.bulk_build([f"b{i}" for i in range(500)], rng.standard_normal((500, D)))
+    return ts
+
+
+def _col_grow(rng):
+    ts = FlatStore(D, quantization=Quantization.I8, device="cpu")
+    ts.upsert_many([f"p{i}" for i in range(8000)], rng.standard_normal((8000, D)))
+    ts.delete("p17")
+    ts.upsert_many([f"g{i}" for i in range(300)], rng.standard_normal((300, D)))
+    assert ts.capacity == 16384
+    return ts
+
+
+def _col_load(rng):
+    ts = FlatStore(D, quantization=Quantization.I8, device="cpu")
+    _mutate(ts, n=300)
+    buf = io.BytesIO()
+    ts.save(buf)
+    return FlatStore.load(io.BytesIO(buf.getvalue()), device="cpu")
+
+
+def _col_adopt_pq(rng):
+    cb = train_pq(rng.standard_normal((512, D)).astype(np.float32), m=8,
+                  n_centroids=16, iters=2)
+    codes = rng.integers(0, 16, (8192, 8)).astype(np.uint8)
+    return FlatStore.adopt_pq(cb, codes, device="cpu")
+
+
+def _col_convert(rng):
+    js = JFlatStore(D, quantization=JQuant.I8)
+    _mutate(js, n=300)
+    return flat_store_from_arrays(**_jax_arrays(js), device="cpu")
+
+
+KEY_COLUMN_WRITERS = {
+    "upsert": _col_upsert, "upsert_many": _col_upsert_many,
+    "delete_reuse": _col_delete_reuse, "bulk_build": _col_bulk_build,
+    "grow": _col_grow, "load": _col_load, "adopt_pq": _col_adopt_pq,
+    "convert": _col_convert,
+}
+
+
+def _assert_key_column(store):
+    want = np.full(store.capacity, "", object)
+    for slot, pk in store.slot_to_pk.items():
+        want[slot] = pk
+    assert store.pk_col.tolist() == want.tolist()
+    slots = np.arange(store.capacity)
+    assert store.pks_at(slots) == [store.slot_to_pk.get(s, "") for s in range(store.capacity)]
+
+
+@pytest.mark.parametrize("writer", list(KEY_COLUMN_WRITERS))
+def test_key_column_stays_in_step(writer):
+    """The slot-indexed key column holds slot_to_pk's key at every live slot
+    and "" elsewhere, after each writer of the slot maps and after a
+    delete and an insert that follow it."""
+    rng = np.random.default_rng(11)
+    store = KEY_COLUMN_WRITERS[writer](rng)
+    assert len(store.slot_to_pk) > 1
+    _assert_key_column(store)
+    pk = next(iter(store.pk_to_slot))
+    freed = store.delete(pk)
+    assert store.pks_at(np.array([freed])) == [""]
+    _assert_key_column(store)
+    store.upsert("after", rng.standard_normal(store.dim).astype(np.float32))
+    _assert_key_column(store)
+    assert store.pks_at(np.array([store.pk_to_slot["after"]])) == ["after"]
