@@ -1,15 +1,20 @@
-"""The control of a cell's check: the plain reference put in the program's
-place, one precision below the configuration's (``limits/<cell>.json``
-``control``: ``int4`` for int8 codes, ``tf32`` for f32 rows), judged by
-the same numbers as a run. It has to come out not correct.
+"""The controls of a cell's check: the plain reference put in the
+program's place in a way that has to come out not correct, judged by the
+same numbers as a run. ``limits/<cell>.json`` ``control`` names one or a
+list of them (``reference.CONTROLS``): ``int4`` (int4 codes for int8
+ones) or ``tf32`` (TF32 operands for f32 rows), one precision below the
+configuration's, and ``drop10``, the exact scan of the rows less a
+seeded tenth of them.
 
-    python -m portbench.control --workload <cell> --seeds <n> [<n> ...]
+    python -m portbench.control --workload <cell> --seeds <n> [<n> ...] [--control <name>]
 
-For each seed: the cell's rows and query pool, a seeded uniform sample of
-the mix's ``check_answers`` pool queries (as many answers as a run
-checks), the control's top-k of each, and one JSON line of the numbers
-with ``fails`` (the compared numbers over their limits). Needs a CUDA
-device, as the cell does; ``--device cpu`` runs it on the host.
+For each seed and control (every control of the cell, or the one named):
+the cell's rows and query pool, a seeded uniform sample of the mix's
+``check_answers`` pool queries (as many answers as a run checks), the
+control's top-k of each, and one JSON line of the numbers with ``fails``
+(the compared numbers over their limits) and the ``seconds`` the
+control and its judgement took. Needs a CUDA device, as the
+cell does; ``--device cpu`` runs it on the host.
 """
 
 from __future__ import annotations
@@ -24,13 +29,22 @@ import numpy as np
 from portbench import data, judge, reference, spec
 
 
+def controls(limits: dict) -> list:
+    """A limits file's ``control``: one name or a list of them."""
+    c = limits["control"]
+    return [c] if isinstance(c, str) else list(c)
+
+
 def control_numbers(workload: str, seed: int, device: str,
-                    repo: str = spec.REPO) -> dict:
+                    repo: str = spec.REPO, only: str | None = None) -> list:
+    """One dict of numbers, with ``fails``, for each control of the cell
+    (or the one named ``only``) on ``seed``."""
     bench = spec.benchmark(repo)
     cell = spec.workload(bench, workload)
     config = spec.config(bench, cell, repo)
     traffic = spec.traffic(cell["traffic"], repo)
     limits = spec.limits(workload, repo)
+    names = controls(limits) if only is None else [only]
     k = int(traffic["k"])
     rows, pool = data.make_rows(dict(config["data"], pool=config["query_pool"]),
                                 config["rows"], config["dim"], seed, device)
@@ -39,18 +53,22 @@ def control_numbers(workload: str, seed: int, device: str,
     uq, inv = np.unique(pidx, return_inverse=True)
     keep = judge.allowed_rows(rows.shape[0], traffic.get("filter"))
     scan_rows = rows if keep is None else rows[keep]
-    scores, ids = reference.control_topk(limits["control"], pool[uq], scan_rows, k,
-                                         config["metric"], device)
-    if keep is not None:
-        ids = keep[ids]
-    sample = {"pool": pidx, "count": np.full(len(pidx), k, np.int32),
-              "ids": ids[inv], "scores": scores[inv]}
-    found = judge.numbers(sample, pool, rows, k, config["metric"], device,
-                          traffic.get("filter"))
-    fails = [n for n, lim in limits["compare"].items()
-             if found.get(n) is not None and found[n] > lim["limit"]]
-    return {"workload": workload, "seed": seed, "control": limits["control"],
-            **found, "fails": fails}
+    out = []
+    for name in names:
+        t = time.monotonic()
+        scores, ids = reference.control_topk(name, pool[uq], scan_rows, k,
+                                             config["metric"], device, seed)
+        if keep is not None:
+            ids = keep[ids]
+        sample = {"pool": pidx, "count": np.full(len(pidx), k, np.int32),
+                  "ids": ids[inv], "scores": scores[inv]}
+        found = judge.numbers(sample, pool, rows, k, config["metric"], device,
+                              traffic.get("filter"))
+        fails = [n for n, lim in limits["compare"].items()
+                 if found.get(n) is not None and found[n] > lim["limit"]]
+        out.append({"workload": workload, "seed": seed, "control": name,
+                    **found, "fails": fails, "seconds": time.monotonic() - t})
+    return out
 
 
 def main(argv=None) -> int:
@@ -58,6 +76,8 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--control", choices=reference.CONTROLS,
+                    help="run this control alone (default: every control of the cell)")
     args = ap.parse_args(argv)
     if args.device == "cuda":
         import torch
@@ -66,10 +86,9 @@ def main(argv=None) -> int:
             print("control: no CUDA device", file=sys.stderr)
             return 2
     for seed in args.seeds:
-        t = time.monotonic()
-        out = control_numbers(args.workload, seed, args.device)
-        out["seconds"] = time.monotonic() - t
-        print(json.dumps(out), flush=True)
+        for out in control_numbers(args.workload, seed, args.device,
+                                   only=args.control):
+            print(json.dumps(out), flush=True)
     return 0
 
 

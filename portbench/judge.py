@@ -13,8 +13,13 @@ and its hits' row ids and scores as they came over the wire. The numbers:
 - ``rank_gap``: the widest gap by which a served row's float64 score lies
   below the score of the query's exact k-th best row (0 where every served
   row is at least as good as the k-th best);
-- ``recall_at_10``: the share of each sampled answer's exact top k that it
-  holds, the mean over the answers (an end-to-end metric, not compared).
+- ``miss_share``: the share of each sampled answer's exact top k (under
+  the mix's filter) that it does not hold, counting its valid, distinct
+  rows only, over all sampled answers: a search that never reaches part
+  of the collection serves exact scores of good rows, and only this
+  number sees the rows it left out;
+- ``recall_at_10``: ``1 - miss_share`` on the same sample (an end-to-end
+  metric, not compared).
 
 A cell's limits file names the numbers it compares and their limits;
 ``correct`` needs each at or under its limit, and every request answered.
@@ -80,6 +85,7 @@ def numbers(sample: dict, pool: np.ndarray, rows: np.ndarray, k: int,
         "missing_hits": missing,
         "score_gap": float(gap.max()) if gap.size else 0.0,
         "rank_gap": float(max(0.0, below.max())) if below.size else 0.0,
+        "miss_share": (k * s - hits) / (k * s),
         "recall_at_10": hits / (k * s),
     }
 

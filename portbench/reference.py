@@ -13,8 +13,16 @@ again here from the same host rows.
   ``coltt_tpu_torch/ops/score.py`` (cosine ``((2 - d) / 2) * 100`` with
   ``d = 1 - cos``; euclidean ``max(0, 100 - d)`` with ``d`` the squared
   distance);
-- :func:`control_topk`: the same scan in the precision just below the
-  configuration's: int4 codes for int8 ones, TF32 operands for f32.
+- :func:`control_topk`: a control put in the program's place: the same
+  scan in the precision just below the configuration's (``int4`` codes
+  for int8 ones, ``tf32`` operands for f32), or the exact scan of the
+  rows less a seeded tenth of them (``drop10``: a search that never
+  reaches part of the collection, such as a cut-off graph region or a
+  lost shard; its scores are exact, so only its rows can fail it).
+
+Rows are ranked by their distance (cosine: by the 0-100 score, which is
+monotonic in it): the euclidean score ``max(0, 100 - d)`` ties every row
+at ``d >= 100``, so it is mapped only for the scores returned.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import numpy as np
 import torch
 
 BLOCK_ROWS = 1 << 17
+_DROP_STREAM = 0xD10  # separates drop10's rows from the run's other draws
 
 
 def normalize_score(dist: torch.Tensor, metric: str) -> torch.Tensor:
@@ -32,20 +41,28 @@ def normalize_score(dist: torch.Tensor, metric: str) -> torch.Tensor:
     return torch.clamp(100.0 - dist, min=0.0)
 
 
-def _scores(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
-    """[Q, B] 0-100 scores of queries against a block of rows, in the
-    operands' precision (no TF32: the caller's settings hold)."""
+def _keys(q: torch.Tensor, x: torch.Tensor, metric: str) -> torch.Tensor:
+    """[Q, B] ranking keys of queries against a block of rows, higher is
+    nearer, in the operands' precision (no TF32: the caller's settings
+    hold): cosine the 0-100 score, euclidean ``-d``."""
     if metric == "cosine":
         qn = q / q.norm(dim=1, keepdim=True).clamp(min=1e-30)
         xn = x / x.norm(dim=1, keepdim=True).clamp(min=1e-30)
         return normalize_score(1.0 - qn @ xn.t(), metric)
     d = (q * q).sum(1, keepdim=True) + (x * x).sum(1)[None, :] - 2.0 * (q @ x.t())
-    return normalize_score(d.clamp(min=0.0), metric)
+    return -d.clamp(min=0.0)
+
+
+def _key_scores(keys: torch.Tensor, metric: str) -> torch.Tensor:
+    """Ranking keys -> the 0-100 scores."""
+    return keys if metric == "cosine" else normalize_score(-keys, metric)
 
 
 def _scan(queries: np.ndarray, rows: np.ndarray, k: int, metric: str, device,
-          prepare=lambda t: t):
-    """Exact top-k by scores of ``prepare``d operands, rows in blocks."""
+          prepare=lambda t: t, reach: np.ndarray | None = None):
+    """``(0-100 scores, row ids)`` of the exact top-k by the ranking keys
+    of ``prepare``d operands, rows in blocks; rows where the bool mask
+    ``reach`` is False are never returned."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -53,14 +70,17 @@ def _scan(queries: np.ndarray, rows: np.ndarray, k: int, metric: str, device,
         best_s = best_i = None
         for lo in range(0, rows.shape[0], BLOCK_ROWS):
             x = prepare(torch.from_numpy(rows[lo:lo + BLOCK_ROWS]).to(device))
-            s = _scores(q, x, metric)
+            s = _keys(q, x, metric)
+            if reach is not None:
+                out = torch.from_numpy(~reach[lo:lo + BLOCK_ROWS]).to(device)
+                s[:, out] = -torch.inf
             v, i = torch.topk(s, min(k, s.shape[1]), dim=1)
             i = i + lo
             if best_s is not None:
                 v, sel = torch.topk(torch.cat([best_s, v], 1), k, dim=1)
                 i = torch.gather(torch.cat([best_i, i], 1), 1, sel)
             best_s, best_i = v, i
-        return best_s.cpu().numpy(), best_i.cpu().numpy()
+        return _key_scores(best_s, metric).cpu().numpy(), best_i.cpu().numpy()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
@@ -104,11 +124,25 @@ def tf32_operands(x: torch.Tensor) -> torch.Tensor:
     return bits.view(torch.float32)
 
 
-CONTROLS = {"int4": int4_codes, "tf32": tf32_operands}
+PRECISION = {"int4": int4_codes, "tf32": tf32_operands}
+CONTROLS = (*PRECISION, "drop10")
+
+
+def reached(n: int, seed: int) -> np.ndarray:
+    """``drop10``'s rows: a bool mask ``[n]``, False at a tenth of them
+    drawn from ``seed`` on a stream of their own."""
+    rng = np.random.default_rng([seed % (1 << 63), _DROP_STREAM])
+    mask = np.ones(n, bool)
+    mask[rng.permutation(n)[:n // 10]] = False
+    return mask
 
 
 def control_topk(control: str, queries: np.ndarray, rows: np.ndarray, k: int,
-                 metric: str, device) -> tuple[np.ndarray, np.ndarray]:
-    """The reference in the program's place, one precision below: the
-    exact scan of ``CONTROLS[control]``-rounded operands."""
-    return _scan(queries, rows, k, metric, device, prepare=CONTROLS[control])
+                 metric: str, device, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    """The control ``control`` (one of ``CONTROLS``) in the program's
+    place: ``(scores [Q, k], ids [Q, k])`` into ``rows``. ``drop10`` leaves
+    out the same tenth of ``rows`` for every query."""
+    if control == "drop10":
+        return _scan(queries, rows, k, metric, device,
+                     reach=reached(rows.shape[0], seed))
+    return _scan(queries, rows, k, metric, device, prepare=PRECISION[control])

@@ -3,7 +3,8 @@
 Each fault is planted in the program's engine after ingest (the harness's
 ``hook``), so every request of the window goes through it: an answer
 altered where it is produced (a hit's row, or its score), and half of a
-batch left out."""
+batch left out, and a search that never reaches a seeded tenth of the
+rows (deleted from the store under the engine)."""
 
 import numpy as np
 import pytest
@@ -66,6 +67,23 @@ def alter_row_search(dep):
         return hits
 
     dep.engine.search = broken
+
+
+def drop_a_tenth_of_the_rows(dep):
+    store = dep.engine._collections[dep.collection].store
+    n = dep.config["rows"]
+    for row in np.random.default_rng(2**31 + 5).permutation(n)[:n // 10]:
+        store.delete(str(row))
+
+
+@pytest.mark.parametrize("cell", ["tiny.batch", "tiny.search"])
+def test_rows_never_reached_fail_on_miss_share(root, cell):
+    result = harness.run_cell(cell, 23, 1.0, False, device="cpu", repo=root,
+                              hook=drop_a_tenth_of_the_rows)
+    checked = result["checked"]
+    assert result["correct"] is False, checked
+    assert checked["miss_share"]["value"] > checked["miss_share"]["limit"]
+    assert checked["score_gap"]["value"] <= checked["score_gap"]["limit"]
 
 
 @pytest.mark.parametrize("cell,fault", [
