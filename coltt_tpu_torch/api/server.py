@@ -14,7 +14,6 @@ transport failure, and is logged with method + latency.
 
 from __future__ import annotations
 
-import threading
 import time
 from concurrent import futures
 from typing import Callable, Dict, Optional, Tuple
@@ -52,18 +51,13 @@ from coltt_tpu_torch.utils.logging import get_logger
 log = get_logger("rpc")
 
 
-# the method of the handler running on this thread: ``_guarded`` sets it,
-# ``_TracedPool`` reads it when the task ends
-_rpc = threading.local()
-
-
 def _guarded(fn: Callable, make_error_response: Callable, method: str):
     """recover()-parity wrapper: exceptions -> error responses, with
     per-request structured logging (interceptorLogger parity); the
     ``rpc.handler`` span's two stamps give the logged latency."""
 
     def wrapper(request, context):
-        _rpc.method = method
+        trace.set_method(method)
         t0 = time.monotonic_ns()
         try:
             resp = fn(request, context)
@@ -106,13 +100,14 @@ class _TracedPool(futures.ThreadPoolExecutor):
 
         def task():
             t_start = time.monotonic_ns()
-            _rpc.method = None
+            trace.set_method(None)
             try:
                 return fn(*args, **kwargs)
             finally:
                 t_end = time.monotonic_ns()
-                trace.record("rpc.queue", _rpc.method, t_submit, t_start)
-                trace.record("rpc.call", _rpc.method, t_start, t_end)
+                method = trace.method()
+                trace.record("rpc.queue", method, t_submit, t_start)
+                trace.record("rpc.call", method, t_start, t_end)
 
         return super().submit(task)
 
@@ -447,11 +442,12 @@ class CoreServicer:
             min_score=request.min_score_threshold,
             with_metadata=request.include_metadata,
         )
-        resp = core_pb2.SearchBatchResponse(
-            status=True, counts=counts, scores=scores, ids=ids
-        )
-        if mds is not None:
-            resp.metadata.extend(dict_to_struct(m) for m in mds)
+        with trace.span("rpc.reply", "VectorSearchBatch"):
+            resp = core_pb2.SearchBatchResponse(
+                status=True, counts=counts, scores=scores, ids=ids
+            )
+            if mds is not None:
+                resp.metadata.extend(dict_to_struct(m) for m in mds)
         if request.with_latency:
             resp.latency = f"{(time.perf_counter() - t0) * 1e3:.3f}ms"
         return resp

@@ -45,6 +45,7 @@ from coltt_tpu_torch.ops.quant import Quantization
 from coltt_tpu_torch.ops.score import normalize_score
 from coltt_tpu_torch.storage.kv import KV
 from coltt_tpu_torch.store.hnsw import HnswConfig, HnswIndex
+from coltt_tpu_torch.utils import trace
 from coltt_tpu_torch.utils.logging import get_logger
 from coltt_tpu_torch.utils.snowflake import SnowflakeNode
 
@@ -324,8 +325,9 @@ class CoreEngine:
         commits the log in large KV batches; on a non-empty collection it
         degrades to sequential inserts. All-or-nothing on the empty-path:
         any failure resets the collection to empty (rollback parity).
+        Recorded as the span ``engine.bulk_insert``.
         """
-        with self._mu:
+        with self._mu, trace.span("engine.bulk_insert"):
             col = self._require_col(name)
             vecs = np.asarray(vectors, np.float32)
             if vecs.ndim != 2 or vecs.shape[1] != col.spec.dim:
@@ -465,7 +467,8 @@ class CoreEngine:
         beam search (the beam is natively batched — VectorSearchBatch RPC).
 
         Returns columnar ``(counts [Q], scores flat, ids flat, mds|None)``
-        matching the SearchBatchResponse wire shape."""
+        matching the SearchBatchResponse wire shape. The hits to those
+        columns are the span ``engine.flatten``."""
         with self._mu:
             col = self._require_col(name)
             queries = np.asarray(vectors, np.float32)
@@ -474,26 +477,27 @@ class CoreEngine:
                     f"queries must be [Q, {col.spec.dim}]", ErrorCode.INTERNAL_FUNC_ERROR
                 )
         d, ids = col.hnsw.search(queries, k=top_k, ef=ef)
-        scores = _scores(d, col.spec.metric).tolist()
-        counts: List[int] = []
-        out_scores: List[float] = []
-        out_ids: List[str] = []
-        out_mds: Optional[List[Dict[str, Any]]] = [] if with_metadata else None
-        for r in range(d.shape[0]):
-            row_n = 0
-            for dd, ss, score in zip(d[r], ids[r], scores[r]):
-                if ss < 0 or not np.isfinite(dd):
-                    continue
-                if score < min_score:
-                    continue
-                out_scores.append(score)
-                out_ids.append(col.slot_to_id.get(int(ss), ""))
-                if out_mds is not None:
-                    out_mds.append(col.metadata.get(int(ss), {}))
-                row_n += 1
-                if row_n >= top_k:
-                    break
-            counts.append(row_n)
+        with trace.span("engine.flatten", trace.method()):
+            scores = _scores(d, col.spec.metric).tolist()
+            counts: List[int] = []
+            out_scores: List[float] = []
+            out_ids: List[str] = []
+            out_mds: Optional[List[Dict[str, Any]]] = [] if with_metadata else None
+            for r in range(d.shape[0]):
+                row_n = 0
+                for dd, ss, score in zip(d[r], ids[r], scores[r]):
+                    if ss < 0 or not np.isfinite(dd):
+                        continue
+                    if score < min_score:
+                        continue
+                    out_scores.append(score)
+                    out_ids.append(col.slot_to_id.get(int(ss), ""))
+                    if out_mds is not None:
+                        out_mds.append(col.metadata.get(int(ss), {}))
+                    row_n += 1
+                    if row_n >= top_k:
+                        break
+                counts.append(row_n)
         return counts, out_scores, out_ids, out_mds
 
     def filter_search(

@@ -46,6 +46,7 @@ import time
 from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 from coltt_tpu_torch.storage.wal import WAL, ChunkPosition
+from coltt_tpu_torch.utils import trace
 from coltt_tpu_torch.utils.sortedkeys import SortedKeys
 
 REC_PUT = 1
@@ -117,10 +118,11 @@ class Batch:
         self._pending = {}
 
     def commit(self) -> None:
+        """Write the batch to the log (the span ``kv.commit``)."""
         if not self._pending:
             return
         db = self._db
-        with db._mu:
+        with db._mu, trace.span("kv.commit"):
             payloads = []
             keys = []
             for key, (value, expire) in self._pending.items():
@@ -630,7 +632,9 @@ class KV:
                     pass  # next tick retries; merge failures must not kill the thread
 
     def sync(self) -> None:
-        self._wal.sync()
+        """Make every committed batch durable (the span ``kv.sync``)."""
+        with trace.span("kv.sync"):
+            self._wal.sync()
 
     def close(self) -> None:
         self._stop.set()

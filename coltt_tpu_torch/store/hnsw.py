@@ -49,6 +49,7 @@ import torch
 
 from coltt_tpu_torch.ops.distance import Metric, _dot_scores
 from coltt_tpu_torch.ops.topk import fetch_scores_ids, fit_rows, stable_topk
+from coltt_tpu_torch.utils import trace
 
 _SNAPSHOT_MAGIC = b"CTTHNSW1"
 
@@ -60,6 +61,11 @@ HEURISTIC = "heuristic"
 LOOP_CHECK_EVERY = 4
 
 _INF = float("inf")
+
+# a served search's work tally, one int64 device tensor read once with its
+# results: hops, beam iterations, neighbour distances scored, adjacency
+# rows expanded, query blocks
+_WORK = ("descend_hops", "beam_iters", "scored", "expanded", "blocks")
 
 
 @dataclass(frozen=True)
@@ -138,23 +144,28 @@ def _check_now(it: int, check_every: int) -> bool:
 
 def _greedy_descent(vectors, sqnorms, adj, queries, cur, *, metric: Metric,
                     compute_dtype=torch.float32, max_hops: int = 64,
-                    check_every: Optional[int] = None):
+                    check_every: Optional[int] = None, work=None):
     """Batched greedy walk on one level (hnsw.go:320 greedyClosestNeighbor).
 
     adj [N, W] padded int32 for the level, queries [Q, D] f32, cur [Q]
     start vertices. Returns the per-query local minimum vertex ids [Q]
     (int64). Up to ``max_hops`` hops; every ``check_every`` hops the host
     stops the walk once every query is done (``done`` freezes ``cur``, so
-    the extra hops of the fixed count change nothing)."""
+    the extra hops of the fixed count change nothing). ``work`` (a
+    ``_WORK`` tally) gains the walk's hops, scored neighbours and expanded
+    rows."""
     check_every = LOOP_CHECK_EVERY if check_every is None else check_every
     qsq = (queries * queries).sum(dim=1)
     cur = cur.long()
     cur_d = _batched_dist(queries, vectors[cur][:, None, :], qsq,
                           sqnorms[cur][:, None], metric, compute_dtype)[:, 0]
     done = torch.zeros_like(cur, dtype=torch.bool)
+    path = []
     for it in range(max_hops):
         if _check_now(it, check_every) and bool(done.all()):
             break
+        if work is not None:
+            path.append(cur)
         nbrs = adj[cur].long()                            # [Q, W]
         ok = nbrs >= 0
         safe = torch.where(ok, nbrs, 0)
@@ -167,7 +178,22 @@ def _greedy_descent(vectors, sqnorms, adj, queries, cur, *, metric: Metric,
         cur = torch.where(improved, nbrs.gather(1, best)[:, 0], cur)
         cur_d = torch.where(improved, bd, cur_d)
         done = done | ~improved
+    if path:
+        _tally_walk(work, adj, path)
     return cur
+
+
+def _tally_walk(work, adj, path):
+    """Add a greedy walk's work to ``work``, from ``path`` (each query's
+    vertex at the start of each hop run) alone, so the walk's loop pays
+    nothing for it: a query walks in hop 0 and in each hop after one that
+    moved it (a move is to a strictly nearer vertex, so never in place)."""
+    p = torch.stack(path)                                 # [H, Q]
+    walked = torch.ones_like(p, dtype=torch.bool)
+    walked[1:] = p[1:] != p[:-1]
+    work[0] += walked.any(dim=1).sum()
+    work[2] += ((adj[p] >= 0) & walked[:, :, None]).sum()
+    work[3] += walked.sum()
 
 
 def _row_isin(values, table):
@@ -195,7 +221,7 @@ def _first_in_row(ids, keep):
 def _beam_search_l0(vectors, sqnorms, adj0, alive, queries, entry_ids, *,
                     ef: int, k: int, expand: int, max_iters: int,
                     metric: Metric, compute_dtype=torch.float32,
-                    check_every: Optional[int] = None):
+                    check_every: Optional[int] = None, work=None):
     """Batched ef-bounded best-first search on one level's graph.
 
     vectors [N, D], sqnorms [N] f32, adj0 [N, M0] int32 (-1 pad), alive [N]
@@ -204,7 +230,9 @@ def _beam_search_l0(vectors, sqnorms, adj0, alive, queries, entry_ids, *,
     vertices (pad id -1 / inf).
 
     Queries run in blocks sized from free device memory (each query's
-    search is independent, so the blocks change no result)."""
+    search is independent, so the blocks change no result). ``work`` (a
+    ``_WORK`` tally) gains each block's iterations, scored neighbours and
+    expanded rows, and the number of blocks."""
     check_every = LOOP_CHECK_EVERY if check_every is None else check_every
     expand = min(expand, ef)
     em = expand * adj0.shape[1]
@@ -214,15 +242,19 @@ def _beam_search_l0(vectors, sqnorms, adj0, alive, queries, entry_ids, *,
     outs = [_beam_block(vectors, sqnorms, adj0, alive, queries[s:s + qb],
                         entry_ids[s:s + qb], ef=ef, k=k, expand=expand,
                         max_iters=max_iters, metric=metric,
-                        compute_dtype=compute_dtype, check_every=check_every)
+                        compute_dtype=compute_dtype, check_every=check_every,
+                        work=work)
             for s in range(0, queries.shape[0], qb)]
+    if work is not None:
+        work[4] += len(outs)
     if len(outs) == 1:
         return outs[0]
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
 def _beam_block(vectors, sqnorms, adj0, alive, queries, entry_ids, *, ef, k,
-                expand, max_iters, metric, compute_dtype, check_every):
+                expand, max_iters, metric, compute_dtype, check_every,
+                work=None):
     """One query block of :func:`_beam_search_l0`.
 
     Dedup is by comparison, not a visited bitmap: a candidate is fresh iff
@@ -231,7 +263,9 @@ def _beam_block(vectors, sqnorms, adj0, alive, queries, entry_ids, *, ef, k,
     evicted-unexpanded node may be re-scored once, as in the reference.
     The loop stops early only when no query has an unexpanded finite beam
     entry: then a step changes nothing (the merge keeps the beam, its own
-    entries winning ties against the fresh infinite ones)."""
+    entries winning ties against the fresh infinite ones). The tally reads
+    the expansion history at the end: an iteration counts where some query
+    expanded an entry, which is the reference's loop condition."""
     dev = queries.device
     q = queries.shape[0]
     m0 = adj0.shape[1]
@@ -247,6 +281,8 @@ def _beam_block(vectors, sqnorms, adj0, alive, queries, entry_ids, *, ef, k,
         queries, vectors[entry_ids][:, None, :], qsq,
         sqnorms[entry_ids][:, None], metric, compute_dtype)[:, 0]
     hist = torch.full((q, expand * max_iters), -1, dtype=torch.long, device=dev)
+    if work is not None:
+        fresh_n = torch.zeros(max_iters, dtype=torch.long, device=dev)
 
     for it in range(max_iters):
         frontier = torch.where(beam_exp, _INF, beam_dist)
@@ -267,6 +303,8 @@ def _beam_block(vectors, sqnorms, adj0, alive, queries, entry_ids, *, ef, k,
         fresh = (nbr_ok & ~_row_isin(safe_nbrs, beam_ids)
                  & ~_row_isin(safe_nbrs, hist))
         fresh = _first_in_row(safe_nbrs, fresh)
+        if work is not None:
+            torch.sum(fresh, dim=(0, 1), out=fresh_n[it])
 
         ndist = _batched_dist(queries, vectors[safe_nbrs], qsq,
                               sqnorms[safe_nbrs], metric, compute_dtype)
@@ -279,6 +317,12 @@ def _beam_block(vectors, sqnorms, adj0, alive, queries, entry_ids, *, ef, k,
         beam_ids = all_ids.gather(1, sel)
         beam_dist = -negd
         beam_exp = all_exp.gather(1, sel)
+
+    if work is not None:
+        live = (hist >= 0).view(q, max_iters, expand)
+        work[1] += live.any(dim=2).any(dim=0).sum()
+        work[2] += fresh_n.sum()
+        work[3] += live.sum()
 
     # filter tombstoned vertices from results
     safe = torch.where(beam_ids >= 0, beam_ids, 0)
@@ -1008,9 +1052,11 @@ class HnswIndex:
         build, then one ef=32 beam-refinement round over the finished graph
         (the clustered blocks supply dense local candidates cheaply; the
         beam round restores the cross-cluster edges the partition misses).
-        Sequential-parity construction remains ``insert`` / ``bulk_build``."""
-        out = self.bulk_build_clustered(vectors, **kw)
-        self.beam_refine(rounds=1, ef=32, batch_rows=4096)
+        Sequential-parity construction remains ``insert`` / ``bulk_build``.
+        Recorded as the span ``hnsw.build``."""
+        with trace.span("hnsw.build"):
+            out = self.bulk_build_clustered(vectors, **kw)
+            self.beam_refine(rounds=1, ef=32, batch_rows=4096)
         return out
 
     @_locked
@@ -1336,7 +1382,14 @@ class HnswIndex:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Batched top-k search. Returns (dists [Q,k], slots [Q,k]); missing
         results carry slot -1 / dist inf. ``device=False`` walks the host
-        arrays (upper-level descent + level-0 beam, one query at a time)."""
+        arrays (upper-level descent + level-0 beam, one query at a time).
+
+        The device search records the spans ``hnsw.descend`` (the upper
+        levels' greedy walk), ``hnsw.beam`` (level 0) and ``hnsw.fetch``
+        (the results to the host), under the calling thread's RPC method,
+        and adds its work to the counters ``hnsw.queries`` and ``hnsw.<w>``
+        for each ``w`` of ``_WORK``: the algorithm's work, whatever the
+        launches that do it."""
         queries = np.atleast_2d(np.asarray(queries, np.float32))
         qn, _ = queries.shape
         ef = max(self.config.ef if ef is None else ef, k)
@@ -1371,25 +1424,37 @@ class HnswIndex:
             max_level = self._max_level
             with self._readers_mu:
                 self._readers += 1
+        method = trace.method()
         try:
             # gRPC hands a read-only buffer; torch wants writable memory
             tq = torch.from_numpy(np.require(queries, requirements="W")).to(self.device)
             entries = torch.full((qn,), entry, dtype=torch.long, device=self.device)
+            work = torch.zeros(len(_WORK), dtype=torch.long, device=self.device)
             # upper-level greedy descent, batched on device per level
-            for l in range(min(max_level, len(upper)), 0, -1):
-                entries = _greedy_descent(
-                    vectors, sqn, upper[l - 1], tq, entries,
+            with trace.span("hnsw.descend", method):
+                for l in range(min(max_level, len(upper)), 0, -1):
+                    entries = _greedy_descent(
+                        vectors, sqn, upper[l - 1], tq, entries,
+                        metric=self.metric, compute_dtype=self.device_dtype,
+                        work=work,
+                    )
+            with trace.span("hnsw.beam", method):
+                d, ids = _beam_search_l0(
+                    vectors, sqn, adj0, alive, tq, entries,
+                    ef=ef, k=k, expand=expand,
+                    max_iters=max(2 * ef // max(expand, 1), 8),
                     metric=self.metric, compute_dtype=self.device_dtype,
+                    work=work,
                 )
-            d, ids = _beam_search_l0(
-                vectors, sqn, adj0, alive, tq, entries,
-                ef=ef, k=k, expand=expand, max_iters=max(2 * ef // max(expand, 1), 8),
-                metric=self.metric, compute_dtype=self.device_dtype,
-            )
-            d, ids = fetch_scores_ids(d, ids)
+            with trace.span("hnsw.fetch", method):
+                d, ids = fetch_scores_ids(d, ids)
+            work = work.tolist()
         finally:
             with self._readers_mu:
                 self._readers -= 1
+        trace.count("hnsw.queries", qn)
+        for name, n in zip(_WORK, work):
+            trace.count(f"hnsw.{name}", n)
         if d.shape[1] < k:
             pad = k - d.shape[1]
             d = np.concatenate([d, np.full((qn, pad), np.inf, np.float32)], axis=1)

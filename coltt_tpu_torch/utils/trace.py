@@ -12,6 +12,12 @@ oldest first; counters are exact totals. Both are on by default;
         ...
     trace.record("rpc.queue", "Search", t_submit_ns, t_start_ns)
     trace.count("batcher.rows", 64)
+    with trace.span("hnsw.beam", trace.method()):
+        ...
+
+:func:`set_method` names the RPC method the calling thread serves (the
+gRPC handler sets it); :func:`method` reads it, so a layer below the
+server can file its spans under the request's method.
 
 Readers: :func:`spans`, :func:`oldest`, :func:`counters` and
 :func:`summary` (served by ``__main__``'s ``/debug/trace``).
@@ -158,6 +164,19 @@ class Recorder:
                 "p95_ms": float(np.percentile(d, 95)), "max_ms": float(d.max())})
         return {"spans": rows, "counters": self.counters(), "oldest": self.oldest(),
                 "capacity": self._ring[1]}
+
+
+_local = threading.local()
+
+
+def set_method(method) -> None:
+    """Name the RPC method the calling thread serves (None: none)."""
+    _local.method = method
+
+
+def method():
+    """The RPC method the calling thread serves, or None."""
+    return getattr(_local, "method", None)
 
 
 _recorder = Recorder()
