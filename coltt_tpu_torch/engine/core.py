@@ -96,7 +96,35 @@ class _CoreCollection:
     inverted: InvertedIndex  # legacy string-normalized variant (pkg/index)
     metadata: Dict[int, Dict[str, Any]] = field(default_factory=dict)  # slot->md
     id_to_slot: Dict[str, int] = field(default_factory=dict)
-    slot_to_id: Dict[int, str] = field(default_factory=dict)
+    # slot -> external id, "" where a slot holds no row (the one map that
+    # way): a batch search's hits take their ids in one gather (ids_at)
+    id_col: np.ndarray = field(default_factory=lambda: np.full(0, "", object))
+
+    def set_ids(self, slots, ext_ids) -> None:
+        """Write ``ext_ids`` (one id, or one a slot; "" clears) into the id
+        column at ``slots``. Past its end the column doubles; the grown
+        array is filled whole before it replaces the old one, so a search
+        reading the column outside the engine's lock sees a whole array."""
+        slots = np.asarray(slots, np.int64).reshape(-1)
+        if slots.size == 0:
+            return
+        need = int(slots.max()) + 1
+        if need > len(self.id_col):
+            col = np.full(max(need, 2 * len(self.id_col)), "", object)
+            col[:len(self.id_col)] = self.id_col
+            self.id_col = col
+        self.id_col[slots] = ext_ids
+
+    def ids_at(self, slots: np.ndarray) -> List[str]:
+        """The external ids at ``slots`` (each >= 0), in one gather; ""
+        where a slot holds no row."""
+        col = self.id_col
+        if slots.size and int(slots.max()) >= len(col):
+            # a row the graph took after this column was read: no id yet
+            grown = np.full(int(slots.max()) + 1, "", object)
+            grown[:len(col)] = col
+            col = grown
+        return col[slots].tolist()
 
 
 @dataclass
@@ -278,7 +306,7 @@ class CoreEngine:
                 indexed = True
                 col.metadata[slot] = metadata
                 col.id_to_slot[ext_id] = slot
-                col.slot_to_id[slot] = ext_id
+                col.set_ids([slot], ext_id)
                 record = msgpack.packb(
                     {"id": ext_id, "vector": v.tobytes(), "metadata": metadata},
                     use_bin_type=True,
@@ -298,7 +326,7 @@ class CoreEngine:
                     col.hnsw.remove(slot)
                     col.metadata.pop(slot, None)
                     col.id_to_slot.pop(ext_id, None)
-                    col.slot_to_id.pop(slot, None)
+                    col.set_ids([slot], "")
                 if logged_key:
                     self.kv.delete(self._log_key(name, ext_id))
                 raise EngineError(
@@ -362,7 +390,7 @@ class CoreEngine:
                     col.inverted.add(slot, md)
                     col.metadata[slot] = md
                     col.id_to_slot[ext_ids[i]] = slot
-                    col.slot_to_id[slot] = ext_ids[i]
+                col.set_ids(slots, ext_ids)
                 batch = self.kv.new_batch()
                 pending = 0
                 for i in range(n):
@@ -417,7 +445,7 @@ class CoreEngine:
             slot = col.id_to_slot.pop(ext_id, None)
             if slot is None:
                 return False
-            col.slot_to_id.pop(slot, None)
+            col.set_ids([slot], "")
             md = col.metadata.pop(slot, None)
             col.inverted.remove(slot, md)
             col.hnsw.remove(slot)
@@ -432,14 +460,15 @@ class CoreEngine:
               min_score: float = 0.0) -> List[CoreSearchHit]:
         out: List[CoreSearchHit] = []
         scores = _scores(dists, col.spec.metric)
-        for d, s, score in zip(dists, slots, scores.tolist()):
+        ids = col.ids_at(np.maximum(np.asarray(slots, np.int64), 0))
+        for d, s, score, ext_id in zip(dists, slots, scores.tolist(), ids):
             if s < 0 or not np.isfinite(d):
                 continue
             if score < min_score:
                 continue
             out.append(
                 CoreSearchHit(
-                    id=col.slot_to_id.get(int(s), ""),
+                    id=ext_id,
                     score=score,
                     metadata=col.metadata.get(int(s), {}),
                 )
@@ -478,26 +507,20 @@ class CoreEngine:
                 )
         d, ids = col.hnsw.search(queries, k=top_k, ef=ef)
         with trace.span("engine.flatten", trace.method()):
-            scores = _scores(d, col.spec.metric).tolist()
-            counts: List[int] = []
-            out_scores: List[float] = []
-            out_ids: List[str] = []
-            out_mds: Optional[List[Dict[str, Any]]] = [] if with_metadata else None
-            for r in range(d.shape[0]):
-                row_n = 0
-                for dd, ss, score in zip(d[r], ids[r], scores[r]):
-                    if ss < 0 or not np.isfinite(dd):
-                        continue
-                    if score < min_score:
-                        continue
-                    out_scores.append(score)
-                    out_ids.append(col.slot_to_id.get(int(ss), ""))
-                    if out_mds is not None:
-                        out_mds.append(col.metadata.get(int(ss), {}))
-                    row_n += 1
-                    if row_n >= top_k:
-                        break
-                counts.append(row_n)
+            # the hits a row keeps, row-major: a slot, a finite distance,
+            # a score at least min_score (compared in float64, as the
+            # Python float it goes out as), the first top_k of them
+            scores = _scores(d, col.spec.metric)
+            keep = (ids >= 0) & np.isfinite(d) & ~(scores.astype(np.float64) < min_score)
+            keep &= np.cumsum(keep, axis=1) <= top_k
+            counts = keep.sum(axis=1).tolist()
+            out_scores = scores[keep].tolist()
+            kept = ids[keep]
+            out_ids = col.ids_at(kept)
+            out_mds: Optional[List[Dict[str, Any]]] = None
+            if with_metadata:
+                out_mds = [col.metadata.get(s, {}) for s in kept.tolist()]
+            trace.count("engine.flatten_rows", len(out_ids))
         return counts, out_scores, out_ids, out_mds
 
     def filter_search(
@@ -509,7 +532,8 @@ class CoreEngine:
         with self._mu:
             col = self._require_col(name)
             cand = col.inverted.pure_search(filters).ids()
-            cand = np.asarray([c for c in cand if c in col.slot_to_id], np.int64)
+            cand = np.asarray(cand, np.int64).reshape(-1)
+            cand = cand[np.asarray(col.ids_at(cand), object) != ""]
             if cand.size == 0:
                 return []
             if vector is None:
@@ -518,11 +542,11 @@ class CoreEngine:
                 # normalize_score(0) would fabricate a perfect 100.0)
                 return [
                     CoreSearchHit(
-                        id=col.slot_to_id.get(int(s), ""),
+                        id=ext_id,
                         score=0.0,
                         metadata=col.metadata.get(int(s), {}),
                     )
-                    for s in cand[:top_k]
+                    for s, ext_id in zip(cand[:top_k], col.ids_at(cand[:top_k]))
                 ]
             v = self._check_dim(col, vector)
             d = col.hnsw._dist_many(v, cand)
@@ -582,7 +606,7 @@ class CoreEngine:
             metadata={int(s): m for s, m in side["metadata"]},
             id_to_slot={i: int(s) for i, s in side["ids"]},
         )
-        col.slot_to_id = {s: i for i, s in col.id_to_slot.items()}
+        col.set_ids(list(col.id_to_slot.values()), list(col.id_to_slot))
         return col
 
     def _rebuild_from_log(self, name: str, spec: CollectionSpec) -> _CoreCollection:
@@ -609,7 +633,7 @@ class CoreEngine:
                 col.inverted.add(slot, r["metadata"])
                 col.metadata[slot] = r["metadata"]
                 col.id_to_slot[r["id"]] = slot
-                col.slot_to_id[slot] = r["id"]
+            col.set_ids(slots, [r["id"] for r in recs])
         else:
             for rec in recs:
                 v = np.frombuffer(rec["vector"], np.float32)
@@ -617,7 +641,7 @@ class CoreEngine:
                 col.inverted.add(slot, rec["metadata"])
                 col.metadata[slot] = rec["metadata"]
                 col.id_to_slot[rec["id"]] = slot
-                col.slot_to_id[slot] = rec["id"]
+                col.set_ids([slot], rec["id"])
         log.info(
             "rebuilt collection from commit log",
             extra={"kv": {"collection": name, "records": n}},

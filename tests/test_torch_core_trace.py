@@ -73,7 +73,8 @@ def test_batch_search_records_its_spans_and_counters(served):
     client, _, _, queries = served
     trace.configure()   # a fresh ring: this call's spans alone
     before = trace.counters()
-    _search(client, queries)
+    counts, _, _, _, _ = client.vector_search_batch(NAME, queries, top_k=K)
+    assert counts == [K] * len(queries)
     # a pool task's spans enter the ring as it ends, after the reply
     deadline = time.monotonic() + 10
     while not any(s[:2] == ("rpc.call", "VectorSearchBatch") for s in trace.spans()):
@@ -97,6 +98,8 @@ def test_batch_search_records_its_spans_and_counters(served):
     assert grown["hnsw.descend_hops"] >= 1
     # at least one row read and its neighbours scored per query and level
     assert grown["hnsw.expanded"] >= Q and grown["hnsw.scored"] >= Q
+    # the ids the flatten gathered from the id column: every served hit
+    assert grown["engine.flatten_rows"] == sum(counts)
 
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -113,6 +116,7 @@ def test_batch_search_records_its_spans_and_counters(served):
     for name in ("queries", "descend_hops", "beam_iters", "scored", "expanded",
                  "blocks"):
         assert got["counters"][f"hnsw.{name}"] >= grown[f"hnsw.{name}"], name
+    assert got["counters"]["engine.flatten_rows"] >= grown["engine.flatten_rows"]
     listed = {(r["name"], r["method"]) for r in got["spans"]}
     assert {(n, "VectorSearchBatch") for n in SEARCH_SPANS} <= listed
 
